@@ -1,0 +1,511 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+
+    python3 chip_smoke.py [--n-docs N] [--seed S]
+
+At the paper's service config (``repro/configs/remoterag.py``: 10^6
+documents of dimension 768, k = 5, the k' = 160 planner knob, the default
+RLWE ring) it
+
+  1. builds every CUDA kernel of the path from ``src/repro_torch/csrc``
+     (one extension, ``torch.utils.cpp_extension.load``);
+  2. builds the index and its dense NTT-domain candidate cache on the card;
+  3. holds each kernel against its plain PyTorch version on the card at the
+     path's shapes (integer kernels bit-identical; score-top-k values within
+     1e-5 relative and ids equal up to scores tied within that tolerance)
+     and times kernel, plain version and, where one exists, the PyTorch
+     library call computing the same function;
+  4. serves 8 requests of 4 tenants one at a time through ``run_remoterag``
+     and again as one batch (perturb_batch -> topk_batch ->
+     encrypted_scores_cached_batch -> decrypt_scores_batch ->
+     finish_request), with the launch counts set to 0 before and read
+     after each, and checks recall@5 = 1.0 against the plaintext top-5,
+     decrypted scores against plaintext inner products (2e-3), and batched
+     lanes against the one-at-a-time path (ids, docs, wire bytes).
+
+Every phase prints one JSON line; the last line is the device summary.  Any
+failed check raises, so the script exits non-zero and prints no result.  It
+needs a CUDA device and the repository's ``src/`` beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s, float32
+# outside the tensor cores, and int32 operations (132 SMs x 64 INT32 lanes
+# x 1.98 GHz, Hopper white paper).
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+INT32_OPS_S = 132 * 64 * 1.98e9
+
+REQUESTS, TENANTS = 8, 4     # requests served per path, tenants (keys)
+REPS, PLAIN_REPS = 50, 5     # timed calls per kernel / per plain version
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float, ops_rate: float) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / ops_rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+_spin_cycles_per_ms: list = []
+
+
+def spin_cycles_per_ms(torch) -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    if not _spin_cycles_per_ms:
+        cycles = 10**7
+        torch.cuda._sleep(cycles)           # warm-up
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        b.synchronize()
+        _spin_cycles_per_ms.append(cycles / a.elapsed_time(b))
+    return _spin_cycles_per_ms[0]
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Median device time of one call of ``fn`` over ``reps`` calls.
+
+    Each call runs between two CUDA events enqueued behind a spin kernel
+    longer than the host takes to enqueue the call, so the device runs the
+    call's launches back to back and no host launch gap lies inside the
+    interval.  A call counts only if the device was still spinning when the
+    host had enqueued it (its first event not yet reached); one that missed
+    is timed again behind a longer spin, and five misses raise, so the
+    result is device time or nothing."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin_ms = 2 * (time.perf_counter() - t0) * 1e3 + 1
+    times, misses = [], 0
+    while len(times) < reps:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms(torch)))
+        a.record()
+        fn()
+        b.record()
+        queued = not a.query()
+        b.synchronize()
+        if queued:
+            times.append(a.elapsed_time(b))
+            continue
+        misses += 1
+        check(misses < 5, "the device reached a timed call before the host "
+              "had enqueued it, five times")
+        spin_ms *= 4
+    return statistics.median(times)
+
+
+def call_ms(torch, fn, reps: int) -> float:
+    """Median time of one call between CUDA events recorded around it:
+    device time plus the host's launch gap, what a caller waits."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def int_err(got, want) -> int:
+    """max |got - want| over a kernel's integer outputs (tensor or tuple)."""
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    return max(int((g.long() - w.long()).abs().max()) for g, w in pairs)
+
+
+def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
+    """Each kernel against its plain version at the main path's shapes; the
+    inputs each kernel is timed on are the ones its error is read from."""
+    from repro_torch.kernels.ntt import fused as kfused
+    from repro_torch.kernels.ntt import ntt as kntt
+    from repro_torch.kernels.ntt import ref as nref
+    from repro_torch.kernels.scoretopk import ref as sref
+    from repro_torch.kernels.scoretopk import scoretopk as kscore
+
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(args.seed + 7)
+    bsz = len(queries)
+    n = params.n_poly
+    chunks = params.num_chunks(index.dim)
+    cpt = params.cands_per_ct(index.dim)
+    num_ct = -(-plan.kprime // cpt)
+    rows = cpt * chunks
+    ctx = params.ctxs[0]
+    logn = int(math.log2(n))
+    out = []
+
+    def residues(shape, q):
+        return torch.from_numpy(gen.integers(0, q, size=shape).astype(
+            np.int32)).to(dev)
+
+    def entry(name, source, replaces, err, kern, plain, nbytes, ops, rate,
+              library=None, **extra):
+        """``kern``/``plain``/``library``: zero-argument callables."""
+        b_ms, b_by = bound(nbytes, ops, rate)
+        lib_ms = (time_ms(torch, library, PLAIN_REPS)
+                  if library is not None else None)
+        out.append(dict(name=name, route="cuda", source=source,
+                        replaces=replaces, launches=0, max_abs_err=err,
+                        ms=time_ms(torch, kern, REPS),
+                        plain_ms=time_ms(torch, plain, PLAIN_REPS),
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        call_ms=call_ms(torch, kern, REPS), **extra))
+
+    def compare(name, kern, plain):
+        """Run kernel and plain version once; both must agree bit for bit."""
+        err = int_err(kern(), plain())
+        check(err == 0, f"{name} disagrees with its plain version by {err}")
+        return err
+
+    # NTT forward / inverse at the batched decryption shape (B*num_ct rows),
+    # the largest per-request batch; every prime is checked
+    batch_rows = bsz * num_ct
+    for inverse, name, rep in ((False, "ntt_fwd",
+                                "src/repro/kernels/ntt/ntt.py:94"),
+                               (True, "ntt_inv",
+                                "src/repro/kernels/ntt/ntt.py:94")):
+        ref_fn = nref.ntt_inv_ref if inverse else nref.ntt_fwd_ref
+        for c in params.ctxs[1:]:
+            for shape in ((batch_rows, n), (1, n), (4096, n)):
+                x = residues(shape, c.q)
+                compare(name, lambda: kntt.ntt_cuda(x, c, inverse=inverse),
+                        lambda: ref_fn(x, c))
+        x = residues((batch_rows, n), ctx.q)
+        err = compare(name, lambda: kntt.ntt_cuda(x, ctx, inverse=inverse),
+                      lambda: ref_fn(x, ctx))
+        ops = batch_rows * (n // 2) * logn * 3 + (batch_rows * n if inverse
+                                                  else 0)
+        entry(name, "src/repro_torch/csrc/ntt.cu", rep, err,
+              lambda: kntt.ntt_cuda(x, ctx, inverse=inverse),
+              lambda: ref_fn(x, ctx),
+              2 * batch_rows * n * 4 + n * 4, ops, INT32_OPS_S,
+              shape=[batch_rows, n])
+
+    # pointwise product at the batched decryption shape
+    for c in params.ctxs[1:]:
+        aa, bb = residues((batch_rows, n), c.q), residues((batch_rows, n), c.q)
+        compare("pointwise_mul", lambda: kntt.pointwise_mul_cuda(aa, bb, c),
+                lambda: nref.pointwise_mul_ref(aa, bb, c))
+    a = residues((batch_rows, n), ctx.q)
+    b = residues((batch_rows, n), ctx.q)
+    err = compare("pointwise_mul", lambda: kntt.pointwise_mul_cuda(a, b, ctx),
+                  lambda: nref.pointwise_mul_ref(a, b, ctx))
+    entry("pointwise_mul", "src/repro_torch/csrc/ntt.cu",
+          "src/repro/kernels/ntt/ntt.py:120", err,
+          lambda: kntt.pointwise_mul_cuda(a, b, ctx),
+          lambda: nref.pointwise_mul_ref(a, b, ctx),
+          3 * batch_rows * n * 4, batch_rows * n, INT32_OPS_S,
+          shape=[batch_rows, n])
+
+    # fused rotate / Hadamard / accumulate / inverse NTT at (B, num_ct, rows, N)
+    for c in params.ctxs[::-1]:           # the first prime's inputs last
+        polys = residues((bsz, num_ct, rows, n), c.q)
+        tw = residues((cpt, n), c.q)
+        f0 = residues((bsz, chunks, n), c.q)
+        f1 = residues((bsz, chunks, n), c.q)
+        err = compare("fused_rerank_intt",
+                      lambda: kfused.fused_rerank_intt_cuda(polys, tw, f0, f1,
+                                                            c),
+                      lambda: nref.fused_rotate_hadamard_intt_ref(
+                          polys, tw, f0, f1, c))
+    cells = bsz * num_ct
+    nbytes = 4 * (polys.numel() + tw.numel() + f0.numel() + f1.numel() + n
+                  + 2 * cells * n)
+    ops = cells * n * (rows * 5 + 2) + 2 * cells * ((n // 2) * logn * 3 + n)
+    entry("fused_rerank_intt", "src/repro_torch/csrc/fused.cu",
+          "src/repro/kernels/ntt/fused.py:132", err,
+          lambda: kfused.fused_rerank_intt_cuda(polys, tw, f0, f1, ctx),
+          lambda: nref.fused_rotate_hadamard_intt_ref(polys, tw, f0, f1, ctx),
+          nbytes, ops, INT32_OPS_S, shape=[bsz, num_ct, rows, n])
+
+    # score + per-tile top-k over the whole corpus with the batch's queries
+    q = torch.from_numpy(np.asarray(queries, np.float32)).to(dev)
+    emb = index.embeddings
+    n_rows, dim = emb.shape
+    tile, kk = 2048, min(plan.kprime, 2048, n_rows)
+    kv, ki = kscore.score_topk_cuda(q, emb, kk=kk, tile=tile)
+    pv, pi = sref.tile_topk_ref(q, emb, kk, tile)
+    fin = torch.isfinite(pv)
+    check(torch.equal(fin, torch.isfinite(kv)), "score_topk -inf pattern")
+    err = (kv[fin] - pv[fin]).abs()
+    check(bool((err <= 1e-5 * pv[fin].abs() + 1e-30).all()),
+          f"score_topk values off by {float(err.max())}")
+    mism = (ki != pi) & fin
+    if bool(mism.any()):
+        # a swapped id must score, under the plain version, within the
+        # tolerance of the plain value at that position (a tie)
+        t_idx, b_idx, _ = torch.nonzero(mism, as_tuple=True)
+        got_ids = ki[mism].long()
+        rescored = (q[b_idx].double() * emb[got_ids].double()).sum(-1)
+        ok = (rescored - pv[mism].double()).abs() <= 1e-5 * pv[mism].abs()
+        check(bool(ok.all()), "score_topk ids differ beyond score ties")
+    num_tiles = -(-n_rows // tile)
+    pad = num_tiles * tile - n_rows
+
+    def library():
+        s = torch.nn.functional.pad(torch.matmul(q, emb.T), (0, pad),
+                                    value=-torch.inf)
+        return torch.topk(s.view(bsz, num_tiles, tile), kk, dim=-1)
+
+    nbytes = 4 * (n_rows * dim + bsz * dim + 2 * num_tiles * bsz * kk)
+    ops = 2 * bsz * n_rows * dim + num_tiles * bsz * kk * tile
+    entry("score_topk", "src/repro_torch/csrc/scoretopk.cu",
+          "src/repro/kernels/scoretopk/scoretopk.py:61",
+          float(err.max()),
+          lambda: kscore.score_topk_cuda(q, emb, kk=kk, tile=tile),
+          lambda: sref.tile_topk_ref(q, emb, kk, tile),
+          nbytes, ops, FP32_OPS_S, library=library,
+          id_mismatches=int(mism.sum()),
+          shape=[bsz, n_rows, dim, kk])
+    return out
+
+
+def serve_phase(torch, np, args, index, cloud, params, plan,
+                queries) -> dict:
+    from repro_torch.core import protocol
+    from repro_torch.kernels import ext
+    from repro_torch.serve import batching
+
+    def users():
+        return [protocol.RemoteRagUser(
+            n=index.dim, N=index.num_rows, k=plan.k, plan=plan,
+            rlwe_params=params, rng=np.random.default_rng(args.seed + 100 + t))
+            for t in range(TENANTS)]
+
+    def gens():
+        return [torch.Generator(device="cuda").manual_seed(args.seed * 1000 + j)
+                for j in range(len(queries))]
+
+    nq = len(queries)
+    # -- one request at a time through run_remoterag --------------------
+    seq_users = users()
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    seq, seq_ms = [], []
+    for j, g in enumerate(gens()):
+        t0 = time.perf_counter()
+        seq.append(protocol.run_remoterag(seq_users[j % TENANTS], cloud,
+                                          queries[j], g))
+        seq_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    seq_launches = ext.launch_counts()
+
+    # -- the same requests as one batch ----------------------------------
+    b_users = users()
+    lane_users = [b_users[j % TENANTS] for j in range(nq)]
+    stages = {}
+    torch.cuda.synchronize()
+    ext.reset_launches()
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    # the batch runs under torch.profiler (CUDA activity only) to split its
+    # wall time into device-busy time per kernel and idle time
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.__enter__()
+    t_batch = time.perf_counter()
+    pert = stage("perturb_batch", lambda: batching.perturb_batch(
+        gens(), queries, [plan.eps] * nq))
+    res = stage("topk_batch", lambda: batching.topk_batch(
+        index, pert, plan.kprime))
+    enc = stage("encrypt", lambda: [u.encrypt_query(e)
+                                    for u, e in zip(lane_users, queries)])
+    sc = stage("encrypted_scores_cached_batch",
+               lambda: batching.encrypted_scores_cached_batch(
+                   params, enc, cloud.candidate_cache, res.indices))
+    scores = stage("decrypt_scores_batch", lambda: batching.decrypt_scores_batch(
+        [u.sk for u in lane_users], sc))
+    cand = res.indices.cpu().numpy()
+
+    def finish():
+        outs = []
+        for j, u in enumerate(lane_users):
+            req = protocol.Request(perturbed=pert[j], kprime=plan.kprime,
+                                   enc_query=enc[j], backend="rlwe")
+            reply = protocol.Reply(candidate_ids=cand[j],
+                                   enc_scores=sc.lane(j))
+            outs.append(protocol.finish_request(
+                u, cloud, req, reply,
+                u.positions_from_scores(scores[j], plan.kprime)))
+        return outs
+
+    batch = stage("finish_request", finish)
+    batch_wall_ms = (time.perf_counter() - t_batch) * 1e3
+    prof.__exit__(None, None, None)
+    batch_launches = ext.launch_counts()
+    busy = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = e.name[:60]
+            busy[key] = busy.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    # an empty trace leaves the busy and idle numbers unmeasured (null),
+    # never read as an idle device
+    busy_ms = sum(busy.values()) if busy else None
+
+    # -- checks -------------------------------------------------------
+    q = torch.from_numpy(np.asarray(queries, np.float32)).cuda()
+    plain = torch.matmul(q, index.embeddings.T)           # TF32 is off
+    top, order = torch.sort(-plain, dim=1, stable=True)
+    want = order[:, :plan.k].cpu().numpy()
+    # plaintext gap between the k-th and (k+1)-th best rows: a gap below
+    # the scheme's 2^-13 fixed-point error can swap them (in the JAX
+    # reference too, whose ciphertexts are bit-identical)
+    gaps = (top[:, plan.k] - top[:, plan.k - 1]).cpu().tolist()
+    recalls, max_err = [], 0.0
+    for j in range(nq):
+        docs_s, ids_s, tr_s = seq[j]
+        docs_b, ids_b, tr_b = batch[j]
+        check(np.array_equal(ids_s, ids_b) and docs_s == docs_b
+              and tr_s.total_bytes == tr_b.total_bytes,
+              f"request {j}: batched lane differs from one-at-a-time path")
+        check(docs_s == [f"passage-{int(i)}".encode() for i in ids_s],
+              f"request {j}: documents do not match ids")
+        recalls.append(len(set(ids_s.tolist()) & set(want[j].tolist()))
+                       / plan.k)
+        truth = (index.rows(cand[j]).double() @ q[j].double()).cpu().numpy()
+        max_err = max(max_err, float(np.abs(scores[j] - truth).max()))
+    check(all(r == 1.0 for r in recalls),
+          f"recall@{plan.k} {recalls}; k-th/(k+1)-th plaintext gaps {gaps}")
+    check(max_err <= 2e-3, f"decrypted scores off by {max_err}")
+    return dict(requests=nq, tenants=TENANTS, recall_at_k=recalls,
+                kth_gap=gaps,
+                max_score_err=max_err, seq_request_ms=seq_ms,
+                batch_stage_ms=stages,
+                batch_total_ms=sum(stages.values()),
+                batch_wall_ms=batch_wall_ms, batch_device_busy_ms=busy_ms,
+                batch_device_idle_share=(None if busy_ms is None
+                                         else 1.0 - busy_ms / batch_wall_ms),
+                batch_device_ms_by_kernel=dict(sorted(
+                    busy.items(), key=lambda kv: -kv[1])[:12]),
+                total_bytes=[b[2].total_bytes for b in batch],
+                launches_seq=seq_launches, launches_batch=batch_launches)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n-docs", type=int, default=10**6)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.core import planner, protocol
+    from repro_torch.crypto import rlwe
+    from repro_torch.data import synth
+    from repro_torch.kernels import ext
+    from repro_torch.retrieval.index import FlatIndex
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # -- environment + kernel build ---------------------------------------
+    card = gpu_line()
+    t0 = time.perf_counter()
+    ext.extension()             # builds every kernel (ninja, in parallel)
+    build_s = time.perf_counter() - t0
+    emit({"phase": "environment", "nvidia_smi": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0), "build_s": build_s})
+
+    # -- data, index, cache (paper config: repro/configs/remoterag.py) ------
+    dim, k, kprime_knob = 768, 5, 160
+    params = rlwe.RlweParams()
+    t0 = time.perf_counter()
+    corpus = synth.uniform_corpus(np.random.default_rng(args.seed),
+                                  args.n_docs, dim)
+    queries = synth.queries_near_corpus(np.random.default_rng(args.seed + 1),
+                                        corpus, REQUESTS)
+    docs = [f"passage-{i}".encode() for i in range(args.n_docs)]
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = FlatIndex.build(corpus, documents=docs)
+    del corpus
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    plan = planner.plan(n=dim, N=args.n_docs, k=k, kprime=kprime_knob)
+    cloud = protocol.RemoteRagCloud(index, rlwe_params=params)
+    torch.cuda.reset_peak_memory_stats()
+    ext.reset_launches()
+    t0 = time.perf_counter()
+    cache = cloud.candidate_cache
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    cache_launches = ext.launch_counts()
+
+    kernels = kernel_phase(torch, np, args, index, params, plan, queries)
+    serve = serve_phase(torch, np, args, index, cloud, params, plan, queries)
+    for kern in kernels:
+        kern["launches"] = (serve["launches_seq"].get(kern["name"], 0)
+                            + serve["launches_batch"].get(kern["name"], 0))
+        check(kern["launches"] > 0,
+              f"kernel {kern['name']} was not launched on the main path")
+    for path in ("launches_seq", "launches_batch"):
+        for kern in kernels:
+            check(serve[path].get(kern["name"], 0) > 0,
+                  f"{path}: kernel {kern['name']} not launched")
+    emit({"kernels": kernels})
+    emit({"phase": "serve", "n_docs": args.n_docs, "dim": dim, "k": plan.k,
+          "kprime": plan.kprime, "path": plan.path, "eps": plan.eps,
+          "data_s": data_s, "index_s": index_s, "cache_build_s": cache_s,
+          "cache_gb": cache.nbytes / 1e9, "cache_launches": cache_launches,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "total_s": time.perf_counter() - t_start, **serve})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

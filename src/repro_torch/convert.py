@@ -1,0 +1,55 @@
+"""Carry the JAX package's state into the port's objects.
+
+Takes plain numpy arrays (``np.asarray`` of the JAX package's arrays),
+never objects of that package, so the port still imports nothing of it.
+With these, both packages compute on the same state in the parity tests.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.crypto import rlwe
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.retrieval.index import FlatIndex
+
+
+def flat_index(embeddings: np.ndarray,
+               documents: Optional[Sequence[bytes]] = None, *,
+               device: DeviceLike = None) -> FlatIndex:
+    """An index over already-normalized embedding rows (``FlatIndex``'s
+    ``embeddings``) and its documents, as they are."""
+    return FlatIndex.build(embeddings, documents=documents, normalize=False,
+                           device=device)
+
+
+def candidate_cache(params: rlwe.RlweParams, polys: np.ndarray,
+                    twiddles: np.ndarray, n_dim: int, *,
+                    device: DeviceLike = None) -> rlwe.CandidateCache:
+    """A dense cache from ``CandidateCache.polys`` (num_docs, chunks, P, N)
+    and ``.twiddles`` (P, cpt, N)."""
+    dev = resolve_device(device)
+    chunks, stride, cpt = rlwe._cache_geometry(params, n_dim)
+    polys = np.asarray(polys, np.int32)
+    if polys.shape[1:] != (chunks, params.num_primes, params.n_poly):
+        raise ValueError(f"polys shape {polys.shape} does not match params")
+    return rlwe.CandidateCache(
+        params=params, polys=torch.from_numpy(polys).to(dev),
+        twiddles=torch.from_numpy(np.asarray(twiddles, np.int32)).to(dev),
+        n_dim=n_dim, num_docs=polys.shape[0], stride=stride,
+        cands_per_ct=cpt, num_chunks=chunks)
+
+
+def secret_key(params: rlwe.RlweParams, s: np.ndarray, s_ntt: np.ndarray, *,
+               device: DeviceLike = None) -> rlwe.RlweSecretKey:
+    """A key from ``RlweSecretKey.s`` (N,) and ``.s_ntt`` (P, N)."""
+    dev = resolve_device(device)
+    return rlwe.RlweSecretKey(
+        params=params, s=np.asarray(s, np.int8),
+        s_ntt=torch.from_numpy(np.asarray(s_ntt, np.int32)).to(dev))
+
+
+__all__ = ["flat_index", "candidate_cache", "secret_key"]

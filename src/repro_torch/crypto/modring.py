@@ -1,0 +1,224 @@
+"""Modular-arithmetic substrate for the RLWE path (PyTorch).
+
+Host number theory (prime search, roots of unity, bit-reversed twiddle
+tables) is the reference's, copied.  The device primitives work on int64
+tensors: residues are canonical in [0, q) with q < 2^20, so a product is
+below 2^40 and ``%`` gives the same bits as the reference's int32 limb
+split (which existed only to fit TPU int32 lanes).  The CUDA kernels use a
+64-bit Barrett reduction with ``barrett64 = floor(2^64 / q)`` instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+# ---------------------------------------------------------------------------
+# Host-side number theory (Python ints)
+# ---------------------------------------------------------------------------
+
+
+def is_prime(n: int) -> bool:
+    """Deterministic Miller-Rabin for n < 3.3e24 (fixed witness set)."""
+    if n < 2:
+        return False
+    for p in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
+        if n % p == 0:
+            return n == p
+    d, s = n - 1, 0
+    while d % 2 == 0:
+        d //= 2
+        s += 1
+    for a in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
+        x = pow(a, d, n)
+        if x in (1, n - 1):
+            continue
+        for _ in range(s - 1):
+            x = x * x % n
+            if x == n - 1:
+                break
+        else:
+            return False
+    return True
+
+
+def find_ntt_primes(two_n: int, count: int, *, lo: int = 1 << 19, hi: int = 1 << 20):
+    """Primes q in (lo, hi) with q = 1 mod two_n, largest first."""
+    primes = []
+    k = (hi - 1) // two_n
+    while k * two_n + 1 > lo and len(primes) < count:
+        q = k * two_n + 1
+        if q < hi and is_prime(q):
+            primes.append(q)
+        k -= 1
+    if len(primes) < count:
+        raise ValueError(f"only {len(primes)} NTT primes = 1 mod {two_n} in range")
+    return tuple(primes)
+
+
+def primitive_root(q: int) -> int:
+    """Smallest generator of Z_q^* (q prime)."""
+    factors = []
+    phi = q - 1
+    m = phi
+    d = 2
+    while d * d <= m:
+        if m % d == 0:
+            factors.append(d)
+            while m % d == 0:
+                m //= d
+        d += 1
+    if m > 1:
+        factors.append(m)
+    for g in range(2, q):
+        if all(pow(g, phi // f, q) != 1 for f in factors):
+            return g
+    raise ValueError("no generator found")
+
+
+def root_of_unity(q: int, order: int) -> int:
+    """Element of exact multiplicative order ``order`` mod q."""
+    if (q - 1) % order != 0:
+        raise ValueError(f"{order} does not divide {q}-1")
+    g = primitive_root(q)
+    w = pow(g, (q - 1) // order, q)
+    assert pow(w, order, q) == 1 and pow(w, order // 2, q) == q - 1
+    return w
+
+
+def bit_reverse_indices(n: int) -> np.ndarray:
+    bits = n.bit_length() - 1
+    idx = np.arange(n)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
+# ---------------------------------------------------------------------------
+# Per-prime constant bundle
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PrimeCtx:
+    """Everything the NTT needs for one RNS prime.
+
+    ``build`` is lru_cached, so each (q, n) pair maps to one instance; the
+    instance memoizes its twiddle tables per device (`table`)."""
+
+    q: int
+    mu: int            # floor(2^30 / q), the reference's Barrett constant
+    n: int             # transform size (polynomial degree)
+    psi_table: np.ndarray      # (n,) int32 — bit-rev ordered powers of psi
+    ipsi_table: np.ndarray     # (n,) int32 — bit-rev ordered powers of psi^-1
+    n_inv: int         # N^{-1} mod q
+    _tables: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def barrett64(self) -> int:
+        """floor(2^64 / q): the CUDA kernels' Barrett constant."""
+        return (1 << 64) // self.q
+
+    @classmethod
+    @functools.lru_cache(maxsize=None)
+    def build(cls, q: int, n: int) -> "PrimeCtx":
+        psi = root_of_unity(q, 2 * n)
+        ipsi = pow(psi, -1, q)
+        rev = bit_reverse_indices(n)
+        psi_pows = np.array([pow(psi, int(i), q) for i in range(n)], dtype=np.int64)
+        ipsi_pows = np.array([pow(ipsi, int(i), q) for i in range(n)], dtype=np.int64)
+        return cls(
+            q=q,
+            mu=(1 << 30) // q,
+            n=n,
+            psi_table=psi_pows[rev].astype(np.int32),
+            ipsi_table=ipsi_pows[rev].astype(np.int32),
+            n_inv=pow(n, -1, q),
+        )
+
+    def table(self, kind: str, device: torch.device) -> torch.Tensor:
+        """``kind`` in {"psi", "ipsi"}: the int32 table on ``device``."""
+        key = (kind, str(device))
+        t = self._tables.get(key)
+        if t is None:
+            src = self.psi_table if kind == "psi" else self.ipsi_table
+            t = self._tables[key] = torch.from_numpy(src).to(device)
+        return t
+
+
+# ---------------------------------------------------------------------------
+# Device primitives on int64 tensors (canonical residues in [0, q))
+# ---------------------------------------------------------------------------
+
+
+def barrett_reduce(x: torch.Tensor, q: int, mu: int) -> torch.Tensor:
+    """x mod q for 0 <= x < 2^31 — the reference's contract; on int64
+    tensors the exact remainder gives the same bits."""
+    return torch.remainder(x, q)
+
+
+def mod_mul(a: torch.Tensor, b, q: int, mu: int = 0) -> torch.Tensor:
+    """(a * b) mod q with a, b in [0, q), q < 2^20 (int64 product < 2^40)."""
+    return torch.remainder(a.to(torch.int64) * b, q)
+
+
+def mod_add(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
+    s = a + b
+    return torch.where(s >= q, s - q, s)
+
+
+def mod_sub(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
+    d = a - b
+    return torch.where(d < 0, d + q, d)
+
+
+def mod_sum(x: torch.Tensor, q: int, mu: int, axis: int) -> torch.Tensor:
+    """Sum along ``axis`` then one reduction.  The reference accumulates in
+    int32 and asserts the sum cannot wrap; the assert is kept so the port
+    refuses exactly the shapes the reference refuses."""
+    terms = x.shape[axis]
+    assert terms * (q - 1) < 2**31, f"mod_sum overflow: {terms} terms at q={q}"
+    return torch.remainder(x.to(torch.int64).sum(dim=axis), q)
+
+
+# ---------------------------------------------------------------------------
+# numpy int64 oracles (independent implementation for tests)
+# ---------------------------------------------------------------------------
+
+
+def mod_mul_np(a, b, q: int):
+    return (a.astype(np.int64) * b.astype(np.int64)) % q
+
+
+def negacyclic_mul_np(a: np.ndarray, b: np.ndarray, q: int) -> np.ndarray:
+    """Schoolbook negacyclic convolution in Z_q[X]/(X^n + 1) (int64 numpy)."""
+    n = a.shape[-1]
+    a = a.astype(np.int64)
+    b = b.astype(np.int64)
+    full = np.zeros(a.shape[:-1] + (2 * n,), dtype=object)
+    for i in range(n):
+        full[..., i : i + n] += a[..., i : i + 1] * b
+    lo = full[..., :n]
+    hi = full[..., n:]
+    return np.array((lo - hi) % q, dtype=np.int64)
+
+
+__all__ = [
+    "is_prime",
+    "find_ntt_primes",
+    "primitive_root",
+    "root_of_unity",
+    "bit_reverse_indices",
+    "PrimeCtx",
+    "barrett_reduce",
+    "mod_mul",
+    "mod_add",
+    "mod_sub",
+    "mod_sum",
+    "mod_mul_np",
+    "negacyclic_mul_np",
+]

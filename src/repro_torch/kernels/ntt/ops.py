@@ -1,0 +1,67 @@
+"""Public NTT API: the CUDA kernel for CUDA tensors, the plain PyTorch
+version for CPU tensors.
+
+Counterpart of ``repro/kernels/ntt/ops.py``; its ``use_pallas`` switch
+becomes the tensor's device.  A kernel that fails to build or launch
+raises — there is no switch that hides it behind the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.crypto.modring import PrimeCtx
+from repro_torch.kernels.ext import on_cuda
+from repro_torch.kernels.ntt import fused as _fused
+from repro_torch.kernels.ntt import ntt as _kern
+from repro_torch.kernels.ntt import ref as _ref
+
+
+def ntt_fwd(x: torch.Tensor, ctx: PrimeCtx) -> torch.Tensor:
+    """Forward negacyclic NTT, (..., N) int32 in [0, q) -> bit-rev NTT domain."""
+    if not on_cuda(x):
+        return _ref.ntt_fwd_ref(x, ctx)
+    flat = x.to(torch.int32).reshape(-1, ctx.n).contiguous()
+    return _kern.ntt_cuda(flat, ctx, inverse=False).reshape(x.shape)
+
+
+def ntt_inv(x: torch.Tensor, ctx: PrimeCtx) -> torch.Tensor:
+    """Inverse negacyclic NTT, bit-rev NTT domain -> coefficient domain."""
+    if not on_cuda(x):
+        return _ref.ntt_inv_ref(x, ctx)
+    flat = x.to(torch.int32).reshape(-1, ctx.n).contiguous()
+    return _kern.ntt_cuda(flat, ctx, inverse=True).reshape(x.shape)
+
+
+def pointwise_mul(a: torch.Tensor, b: torch.Tensor,
+                  ctx: PrimeCtx) -> torch.Tensor:
+    """Hadamard modular product in the NTT domain (same shapes)."""
+    if not on_cuda(a):
+        return _ref.pointwise_mul_ref(a, b, ctx)
+    return _kern.pointwise_mul_cuda(a.to(torch.int32).contiguous(),
+                                    b.to(torch.int32).contiguous(), ctx)
+
+
+def fused_rotate_hadamard_intt(polys, tw, f0, f1, ctx: PrimeCtx):
+    """Cached re-rank core for one prime with the inverse NTT absorbed:
+    slot twiddle rotate -> Hadamard against both query components ->
+    slot/chunk mod-sum -> inverse NTT.
+
+    polys: (B, num_ct, cpt*chunks, N) slot-major gathered cache rows;
+    tw: (cpt, N); f0/f1: (B, chunks, N).  Returns (acc0, acc1), each
+    (B, num_ct, N), coefficient domain — bit-identical to the staged
+    rotate/Hadamard + `ntt_inv` pipeline."""
+    if not on_cuda(polys):
+        return _ref.fused_rotate_hadamard_intt_ref(polys, tw, f0, f1, ctx)
+    return _fused.fused_rerank_intt_cuda(
+        polys.contiguous(), tw.contiguous(), f0.contiguous(),
+        f1.contiguous(), ctx)
+
+
+def negacyclic_mul(a, b, ctx: PrimeCtx):
+    """a * b in Z_q[X]/(X^N + 1)."""
+    return ntt_inv(pointwise_mul(ntt_fwd(a, ctx), ntt_fwd(b, ctx), ctx), ctx)
+
+
+__all__ = ["ntt_fwd", "ntt_inv", "pointwise_mul",
+           "fused_rotate_hadamard_intt", "negacyclic_mul"]

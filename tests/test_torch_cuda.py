@@ -1,0 +1,128 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: on a host without a CUDA device every test here skips.
+Run them on a GPU host with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports torch and numpy only (no JAX), so it runs where the JAX
+package is not installed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.crypto import modring
+from repro_torch.crypto.modring import PrimeCtx
+from repro_torch.kernels import ext
+from repro_torch.kernels.ntt import ops as ntt_ops
+from repro_torch.kernels.ntt import ref as nref
+from repro_torch.kernels.scoretopk import ops as sops
+from repro_torch.kernels.scoretopk import ref as sref
+from repro_torch.kernels.scoretopk import scoretopk as kscore
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _assert_ids_equal_up_to_ties(got, want, q, e, rtol=1e-5, atol=1e-6):
+    """got/want: (..., B, k) ids for queries q (B, n) over rows e.  Kernel
+    and plain version sum float32 products in different orders, so two rows
+    whose exact scores lie within the value tolerance may come out in
+    either order."""
+    for pos in zip(*np.nonzero((got != want).numpy())):
+        b = pos[-2]
+        s_got = float(e[int(got[pos])].double() @ q[b].double())
+        s_want = float(e[int(want[pos])].double() @ q[b].double())
+        assert abs(s_got - s_want) <= atol + rtol * abs(s_want), (
+            pos, s_got, s_want)
+
+
+def _assert_exact_ties_by_id(v, i):
+    """Equal finite scores come in ascending id order."""
+    same = (v[..., 1:] == v[..., :-1]) & torch.isfinite(v[..., 1:])
+    assert bool((i[..., 1:] > i[..., :-1])[same].all())
+
+
+def _ctxs(n):
+    return [PrimeCtx.build(q, n) for q in modring.find_ntt_primes(2 * n, 3)]
+
+
+@pytest.mark.parametrize("n,batch", [(256, 1), (1024, 8), (4096, 5)])
+def test_ntt_kernels_bit_identical(cuda, n, batch):
+    rng = np.random.default_rng(n + batch)
+    for ctx in _ctxs(n):
+        x = torch.from_numpy(nref.random_poly(rng, (batch, n), ctx.q))
+        y = torch.from_numpy(nref.random_poly(rng, (batch, n), ctx.q))
+        xc, yc = x.to(cuda), y.to(cuda)
+        assert torch.equal(ntt_ops.ntt_fwd(xc, ctx).cpu(), nref.ntt_fwd_ref(x, ctx))
+        assert torch.equal(ntt_ops.ntt_inv(xc, ctx).cpu(), nref.ntt_inv_ref(x, ctx))
+        assert torch.equal(ntt_ops.pointwise_mul(xc, yc, ctx).cpu(),
+                           nref.pointwise_mul_ref(x, y, ctx))
+        want = modring.negacyclic_mul_np(x.numpy()[:1], y.numpy()[:1], ctx.q) \
+            if n <= 256 else None
+        if want is not None:
+            got = ntt_ops.negacyclic_mul(xc[:1], yc[:1], ctx).cpu().numpy()
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("bsz,num_ct,cpt,chunks,n",
+                         [(1, 3, 2, 1, 1024), (3, 5, 1, 2, 1024),
+                          (8, 41, 4, 1, 4096)])
+def test_fused_kernel_bit_identical(cuda, bsz, num_ct, cpt, chunks, n):
+    rng = np.random.default_rng(bsz * num_ct)
+    for ctx in _ctxs(n):
+        polys = torch.from_numpy(nref.random_poly(
+            rng, (bsz, num_ct, cpt * chunks, n), ctx.q))
+        tw = torch.from_numpy(nref.random_poly(rng, (cpt, n), ctx.q))
+        f0 = torch.from_numpy(nref.random_poly(rng, (bsz, chunks, n), ctx.q))
+        f1 = torch.from_numpy(nref.random_poly(rng, (bsz, chunks, n), ctx.q))
+        want = nref.fused_rotate_hadamard_intt_ref(polys, tw, f0, f1, ctx)
+        got = ntt_ops.fused_rotate_hadamard_intt(
+            polys.to(cuda), tw.to(cuda), f0.to(cuda), f1.to(cuda), ctx)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("b,n_rows,n,k,tile", [
+    (1, 512, 128, 8, 256), (4, 1000, 384, 16, 256), (8, 300, 64, 300, 512),
+    (2, 5000, 768, 161, 2048)])
+def test_score_topk_kernel(cuda, b, n_rows, n, k, tile):
+    rng = np.random.default_rng(n_rows)
+    q = rng.normal(size=(b, n)).astype(np.float32)
+    e = rng.normal(size=(n_rows, n)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)      # unit-norm, as the
+    e /= np.linalg.norm(e, axis=-1, keepdims=True)      # index stores them
+    best = int(np.argmax(e @ q[0]))
+    e[n_rows // 2] = e[best]                    # an exact tie in the top k
+    e[n_rows - 1] = e[best]
+    q, e = torch.from_numpy(q), torch.from_numpy(e)
+    kk, t = min(k, tile, n_rows), min(tile, n_rows)
+    kv, ki = kscore.score_topk_cuda(q.to(cuda), e.to(cuda), kk=kk, tile=t)
+    pv, pi = sref.tile_topk_ref(q, e, kk, t)
+    torch.testing.assert_close(kv.cpu(), pv, rtol=1e-5, atol=1e-6)
+    _assert_ids_equal_up_to_ties(ki.cpu(), pi, q, e)
+    _assert_exact_ties_by_id(kv.cpu(), ki.cpu())
+    got = sops.topk_scores(q.to(cuda), e.to(cuda), k, tile=tile)
+    plain = sops.topk_scores(q, e, k, tile=tile)
+    torch.testing.assert_close(got.values.cpu(), plain.values, rtol=1e-5,
+                               atol=1e-6)
+    _assert_ids_equal_up_to_ties(got.indices.cpu(), plain.indices, q, e)
+    assert float(got.values[0, 1]) == float(got.values[0, 0])  # the tie
+    _assert_exact_ties_by_id(got.values.cpu(), got.indices.cpu())
+
+
+def test_launches_are_counted(cuda):
+    ctx = _ctxs(256)[0]
+    x = torch.zeros((2, 256), dtype=torch.int32, device=cuda)
+    ext.reset_launches()
+    ntt_ops.ntt_fwd(x, ctx)
+    ntt_ops.ntt_fwd(x.cpu(), ctx)               # plain version: not counted
+    assert ext.launch_counts() == {"ntt_fwd": 1}

@@ -1,0 +1,134 @@
+"""Port NTT modules (repro_torch.kernels.ntt) against the JAX package.
+
+The same numpy inputs go through the JAX Pallas kernels (interpret mode,
+as the JAX package's own tests run them on the CPU) and through the port's
+CPU path; integer outputs must match bit for bit."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.crypto import modring as jmod
+from repro.kernels.ntt import fused as jfused
+from repro.kernels.ntt import ntt as jntt
+from repro.kernels.ntt import ops as jops
+from repro_torch.crypto import modring
+from repro_torch.crypto.modring import PrimeCtx
+from repro_torch.kernels.ntt import fused as tfused
+from repro_torch.kernels.ntt import ntt as tntt
+from repro_torch.kernels.ntt import ops
+from repro_torch.kernels.ntt import ref
+
+CASES = [(n, q) for n in (256, 1024) for q in modring.find_ntt_primes(2 * n, 3)]
+
+
+def _polys(seed, shape, q):
+    return ref.random_poly(np.random.default_rng(seed), shape, q)
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096])
+def test_prime_tables_match_reference(n):
+    assert modring.find_ntt_primes(2 * n, 3) == jmod.find_ntt_primes(2 * n, 3)
+    for q in modring.find_ntt_primes(2 * n, 3):
+        t, j = PrimeCtx.build(q, n), jmod.PrimeCtx.build(q, n)
+        np.testing.assert_array_equal(t.psi_table, j.psi_table)
+        np.testing.assert_array_equal(t.ipsi_table, j.ipsi_table)
+        assert (t.n_inv, t.mu) == (j.n_inv, j.mu)
+        assert t.barrett64 == (1 << 64) // q
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("n,q", CASES)
+def test_ntt_matches_pallas_bit_for_bit(n, q, batch):
+    ctx, jctx = PrimeCtx.build(q, n), jmod.PrimeCtx.build(q, n)
+    x = _polys(n + batch, (batch, n), q)
+    fwd = ops.ntt_fwd(torch.from_numpy(x), ctx)
+    inv = ops.ntt_inv(torch.from_numpy(x), ctx)
+    want_f = jntt.ntt_pallas(jnp.asarray(x), jctx, interpret=True)
+    want_i = jntt.ntt_pallas(jnp.asarray(x), jctx, inverse=True, interpret=True)
+    assert fwd.dtype == torch.int32
+    np.testing.assert_array_equal(fwd.numpy(), np.asarray(want_f))
+    np.testing.assert_array_equal(inv.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(ops.ntt_inv(fwd, ctx).numpy(), x)
+
+
+@pytest.mark.parametrize("n,q", CASES)
+def test_pointwise_matches_pallas(n, q):
+    ctx, jctx = PrimeCtx.build(q, n), jmod.PrimeCtx.build(q, n)
+    a, b = _polys(1, (8, n), q), _polys(2, (8, n), q)
+    got = ops.pointwise_mul(torch.from_numpy(a), torch.from_numpy(b), ctx)
+    want = jntt.pointwise_mul_pallas(jnp.asarray(a), jnp.asarray(b), jctx,
+                                     interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), modring.mod_mul_np(a, b, q))
+
+
+@pytest.mark.parametrize("n,q", CASES)
+def test_negacyclic_mul_matches_schoolbook(n, q):
+    ctx = PrimeCtx.build(q, n)
+    a, b = _polys(3, (1, n), q), _polys(4, (1, n), q)
+    got = ops.negacyclic_mul(torch.from_numpy(a), torch.from_numpy(b), ctx)
+    np.testing.assert_array_equal(got.numpy(),
+                                  jmod.negacyclic_mul_np(a, b, q))
+
+
+def test_ntt_leading_dims_match_xla_reference():
+    n = 1024
+    q = modring.find_ntt_primes(2 * n, 1)[0]
+    ctx, jctx = PrimeCtx.build(q, n), jmod.PrimeCtx.build(q, n)
+    x = _polys(5, (2, 3, n), q)
+    got = ops.ntt_fwd(torch.from_numpy(x), ctx)
+    want = jops.ntt_fwd(jnp.asarray(x), jctx, use_pallas=False)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# (B, num_ct, cpt, chunks): n_dim <= chunk (stride = chunk, cpt = 2) and
+# n_dim > chunk (stride = 2*chunk, cpt = 1, 2 chunks) at the 1024 ring
+@pytest.mark.parametrize("bsz,num_ct,cpt,chunks", [(2, 3, 2, 1), (1, 2, 1, 2)])
+@pytest.mark.parametrize("pi", [0, 1, 2])
+def test_fused_rerank_intt_matches_pallas(bsz, num_ct, cpt, chunks, pi):
+    n = 1024
+    q = modring.find_ntt_primes(2 * n, 3)[pi]
+    ctx, jctx = PrimeCtx.build(q, n), jmod.PrimeCtx.build(q, n)
+    polys = _polys(6, (bsz, num_ct, cpt * chunks, n), q)
+    tw, f0, f1 = (_polys(7, (cpt, n), q), _polys(8, (bsz, chunks, n), q),
+                  _polys(9, (bsz, chunks, n), q))
+    got = ops.fused_rotate_hadamard_intt(*map(torch.from_numpy,
+                                              (polys, tw, f0, f1)), ctx)
+    want = jfused.fused_rerank_intt_pallas(*map(jnp.asarray,
+                                                (polys, tw, f0, f1)), jctx,
+                                           interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # staged: rotate/Hadamard/mod-sum in the NTT domain, then the inverse
+    acc = ref.fused_rotate_hadamard_ref(*map(torch.from_numpy,
+                                             (polys, tw, f0, f1)), ctx)
+    for g, a in zip(got, acc):
+        assert torch.equal(g, ops.ntt_inv(a, ctx))
+
+
+def test_fused_accumulator_overflow_is_refused():
+    n = 1024
+    q = modring.find_ntt_primes(2 * n, 1)[0]
+    x = torch.zeros((1, 1, 4096, n), dtype=torch.int32)
+    with pytest.raises(AssertionError):
+        ref.fused_rotate_hadamard_ref(x, torch.zeros((4096, n), dtype=torch.int32),
+                                      torch.zeros((1, 1, n), dtype=torch.int32),
+                                      torch.zeros((1, 1, n), dtype=torch.int32),
+                                      PrimeCtx.build(q, n))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """On a CPU tensor only the ops layer's plain path runs; the kernel
+    wrappers never silently compute on the CPU."""
+    n = 256
+    ctx = PrimeCtx.build(modring.find_ntt_primes(2 * n, 1)[0], n)
+    x = torch.zeros((1, n), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tntt.ntt_cuda(x, ctx)
+    with pytest.raises(ValueError):
+        tntt.pointwise_mul_cuda(x, x, ctx)
+    with pytest.raises(ValueError):
+        tfused.fused_rerank_intt_cuda(x[None, None], x, x[None], x[None], ctx)
