@@ -7,25 +7,36 @@ At the paper's service config (``repro/configs/remoterag.py``: 10^6
 documents of dimension 768, k = 5, the k' = 160 planner knob, the default
 RLWE ring) it
 
-  1. builds every CUDA kernel of the path from ``src/repro_torch/csrc``
-     (one extension, ``torch.utils.cpp_extension.load``);
+  1. builds every CUDA kernel from ``src/repro_torch/csrc`` (one
+     extension, ``torch.utils.cpp_extension.load``);
   2. builds the index and its dense NTT-domain candidate cache on the card;
   3. holds each kernel against its plain PyTorch version on the card at the
      path's shapes (integer kernels bit-identical; score-top-k values within
-     1e-5 relative and ids equal up to scores tied within that tolerance)
-     and times kernel, plain version and, where one exists, the PyTorch
-     library call computing the same function;
+     1e-5 relative and ids equal up to scores tied within that tolerance),
+     checks the staged re-rank kernel followed by the inverse NTT against
+     the fused-iNTT kernel (the staged witness), and times kernel, plain
+     version and, where one exists, the PyTorch library call computing the
+     same function;
   4. serves 8 requests of 4 tenants one at a time through ``run_remoterag``
      and again as one batch (perturb_batch -> topk_batch ->
      encrypted_scores_cached_batch -> decrypt_scores_batch ->
-     finish_request), with the launch counts set to 0 before and read
-     after each, and checks recall@5 = 1.0 against the plaintext top-5,
-     decrypted scores against plaintext inner products (2e-3), and batched
-     lanes against the one-at-a-time path (ids, docs, wire bytes).
+     finish_request), and checks recall@5 = 1.0 against the plaintext
+     top-5, decrypted scores against plaintext inner products (2e-3), and
+     batched lanes against the one-at-a-time path (ids, docs, wire bytes);
+  5. re-views the dense cache as a 16-shard sharded cache (one host-pool
+     copy) and checks sharded scores bit-identical to the dense cache's in
+     three regimes: stream-only, two pinned shards, async admission;
+  6. serves 16 requests of 4 tenants through ``ServeEngine`` three times
+     (dense batched, dense sequential, sharded batched with a 4-shard
+     device budget) and checks equal ids, documents and wire bytes across
+     the runs and recall@5 = 1.0.
 
-Every phase prints one JSON line; the last line is the device summary.  Any
-failed check raises, so the script exits non-zero and prints no result.  It
-needs a CUDA device and the repository's ``src/`` beside it.
+Each path (one-at-a-time, batch, each engine run) runs with the launch
+counts set to 0 just before it and read just after, and every kernel of
+the path must have launched.  Every phase prints one JSON line with its
+wall time; the last line is the device summary.  Any failed check raises,
+so the script exits non-zero and prints no result.  It needs a CUDA device
+and the repository's ``src/`` beside it.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import resource
 import statistics
 import subprocess
 import sys
@@ -50,6 +62,10 @@ INT32_OPS_S = 132 * 64 * 1.98e9
 
 REQUESTS, TENANTS = 8, 4     # requests served per path, tenants (keys)
 REPS, PLAIN_REPS = 50, 5     # timed calls per kernel / per plain version
+NUM_SHARDS, BUDGET_SHARDS = 16, 4   # sharded cache: shards, engine budget
+# kernels of the serving path (fused_rerank is the staged witness only)
+PATH_KERNELS = ("ntt_fwd", "ntt_inv", "pointwise_mul", "fused_rerank_intt",
+                "score_topk")
 
 
 def emit(obj) -> None:
@@ -256,6 +272,35 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
           lambda: nref.fused_rotate_hadamard_intt_ref(polys, tw, f0, f1, ctx),
           nbytes, ops, INT32_OPS_S, shape=[bsz, num_ct, rows, n])
 
+    # staged re-rank (NTT-domain accumulators out) at the same shape: bit
+    # identical to its plain version, and staged + standalone inverse NTT
+    # bit identical to the fused-iNTT kernel (the staged witness)
+    for c in params.ctxs[::-1]:
+        polys = residues((bsz, num_ct, rows, n), c.q)
+        tw = residues((cpt, n), c.q)
+        f0 = residues((bsz, chunks, n), c.q)
+        f1 = residues((bsz, chunks, n), c.q)
+        err = compare("fused_rerank",
+                      lambda: kfused.fused_rerank_cuda(polys, tw, f0, f1, c),
+                      lambda: nref.fused_rotate_hadamard_ref(polys, tw, f0,
+                                                             f1, c))
+        staged = kfused.fused_rerank_cuda(polys, tw, f0, f1, c)
+        witness = int_err(tuple(kntt.ntt_cuda(a.reshape(-1, n), c,
+                                              inverse=True).reshape(a.shape)
+                                for a in staged),
+                          kfused.fused_rerank_intt_cuda(polys, tw, f0, f1, c))
+        check(witness == 0, f"staged + inverse NTT differs from the fused "
+              f"kernel by {witness}")
+    nbytes = 4 * (polys.numel() + tw.numel() + f0.numel() + f1.numel()
+                  + 2 * cells * n)
+    entry("fused_rerank", "src/repro_torch/csrc/fused.cu",
+          "src/repro/kernels/ntt/fused.py:99", err,
+          lambda: kfused.fused_rerank_cuda(polys, tw, f0, f1, ctx),
+          lambda: nref.fused_rotate_hadamard_ref(polys, tw, f0, f1, ctx),
+          nbytes, cells * n * (rows * 5 + 2), INT32_OPS_S,
+          shape=[bsz, num_ct, rows, n], staged_witness_max_abs_err=witness,
+          on_serving_path=False)
+
     # score + per-tile top-k over the whole corpus with the batch's queries
     q = torch.from_numpy(np.asarray(queries, np.float32)).to(dev)
     emb = index.embeddings
@@ -296,6 +341,18 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
           id_mismatches=int(mism.sum()),
           shape=[bsz, n_rows, dim, kk])
     return out
+
+
+def device_busy(torch, prof) -> tuple:
+    """({activity name: device ms}, total device ms) from a CUDA-only
+    profile; an empty trace gives ({}, None) — the busy and idle numbers
+    are then unmeasured (null), never read as an idle device."""
+    busy = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = e.name[:60]
+            busy[key] = busy.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    return busy, (sum(busy.values()) if busy else None)
 
 
 def serve_phase(torch, np, args, index, cloud, params, plan,
@@ -377,14 +434,7 @@ def serve_phase(torch, np, args, index, cloud, params, plan,
     batch_wall_ms = (time.perf_counter() - t_batch) * 1e3
     prof.__exit__(None, None, None)
     batch_launches = ext.launch_counts()
-    busy = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = e.name[:60]
-            busy[key] = busy.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
-    # an empty trace leaves the busy and idle numbers unmeasured (null),
-    # never read as an idle device
-    busy_ms = sum(busy.values()) if busy else None
+    busy, busy_ms = device_busy(torch, prof)
 
     # -- checks -------------------------------------------------------
     q = torch.from_numpy(np.asarray(queries, np.float32)).cuda()
@@ -411,7 +461,8 @@ def serve_phase(torch, np, args, index, cloud, params, plan,
     check(all(r == 1.0 for r in recalls),
           f"recall@{plan.k} {recalls}; k-th/(k+1)-th plaintext gaps {gaps}")
     check(max_err <= 2e-3, f"decrypted scores off by {max_err}")
-    return dict(requests=nq, tenants=TENANTS, recall_at_k=recalls,
+    shared = dict(cand=cand, enc=enc, want=want)
+    return shared, dict(requests=nq, tenants=TENANTS, recall_at_k=recalls,
                 kth_gap=gaps,
                 max_score_err=max_err, seq_request_ms=seq_ms,
                 batch_stage_ms=stages,
@@ -423,6 +474,175 @@ def serve_phase(torch, np, args, index, cloud, params, plan,
                     busy.items(), key=lambda kv: -kv[1])[:12]),
                 total_bytes=[b[2].total_bytes for b in batch],
                 launches_seq=seq_launches, launches_batch=batch_launches)
+
+
+def path_launches(name: str, counts: dict) -> dict:
+    """Fail unless every kernel of the serving path launched in ``counts``
+    (one path's run, counts set to 0 just before it)."""
+    for kern in PATH_KERNELS:
+        check(counts.get(kern, 0) > 0, f"{name}: kernel {kern} not launched")
+    return counts
+
+
+def cache_phase(torch, np, args, cache, params, plan, shared) -> dict:
+    """The dense cache re-viewed as a 16-shard sharded cache (one copy of
+    the pool to the host); sharded scores must equal the dense cache's bit
+    for bit in three regimes."""
+    from repro_torch.crypto import rlwe
+
+    cand, enc = shared["cand"].astype(np.int64), shared["enc"]
+    gen = np.random.default_rng(args.seed + 11)
+    t0 = time.perf_counter()
+    pool = cache.host_pool()
+    host_copy_s = time.perf_counter() - t0
+    out = dict(host_pool_copy_s=host_copy_s, host_pool_gb=pool.nbytes / 1e9,
+               host_pool_gb_s=pool.nbytes / 1e9 / host_copy_s)
+
+    def same_as_dense(sh, ids, label):
+        want = rlwe.encrypted_scores_cached_batch(params, enc, cache, ids)
+        got = rlwe.encrypted_scores_cached_batch(params, enc, sh, ids)
+        check(torch.equal(got.c0, want.c0) and torch.equal(got.c1, want.c1),
+              f"cache phase ({label}): sharded scores differ from dense")
+
+    def gather_ms(sh, ids):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sh.gather(ids)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def config(**kw):
+        return rlwe.CandidateCacheConfig(num_shards=NUM_SHARDS, **kw)
+
+    # (a) stream-only, on the 8 requests' top-k' ids: host row gathers
+    sh = rlwe.shard_candidate_cache(cache, config(max_resident_bytes=0))
+    check(sh.num_shards == NUM_SHARDS, f"{sh.num_shards} shards")
+    same_as_dense(sh, cand, "stream-only")
+    out["stream_only"] = dict(
+        gather_ms=[gather_ms(sh, cand) for _ in range(3)],
+        gather_mb=cand.size * pool[0].nbytes / 1e6, stats=sh.stats())
+    sh.close()
+    shard_docs = sh.shard_docs
+
+    # (b) two pinned shards, ids confined to them: device-side gathers
+    sh = rlwe.shard_candidate_cache(cache, config(pin_on_access=False))
+    t0 = time.perf_counter()
+    sh.pin(0)
+    sh.pin(1)
+    pin_s = time.perf_counter() - t0
+    ids = gen.integers(0, 2 * shard_docs, size=cand.shape)
+    same_as_dense(sh, ids, "pinned")
+    check(sh.resident_shards == (0, 1) and sh.misses == 0,
+          f"pinned: resident {sh.resident_shards}, misses {sh.misses}")
+    out["pinned"] = dict(pin_two_shards_s=pin_s,
+                         gather_ms=[gather_ms(sh, ids) for _ in range(3)],
+                         stats=sh.stats())
+    sh.close()
+    del sh
+
+    # (c) async admission on first touch: stream, admit on the admitter's
+    # stream, then gather device-side; the bits never change
+    sh = rlwe.shard_candidate_cache(cache, config(admit_threshold=1))
+    ids = gen.integers(5 * shard_docs, 6 * shard_docs, size=cand.shape)
+    first_ms = gather_ms(sh, ids)          # miss: streams, enqueues shard 5
+    same_as_dense(sh, ids, "async, admission in flight or done")
+    t0 = time.perf_counter()
+    sh.flush()
+    flush_s = time.perf_counter() - t0
+    check(sh.resident_shards == (5,) and sh.async_admissions == 1,
+          f"async: resident {sh.resident_shards}, "
+          f"admissions {sh.async_admissions}")
+    same_as_dense(sh, ids, "async, resident")
+    out["async"] = dict(first_gather_ms=first_ms, flush_s=flush_s,
+                        gather_ms=[gather_ms(sh, ids) for _ in range(3)],
+                        stats=sh.stats())
+    sh.close()
+    del sh
+    torch.cuda.synchronize()
+    return out
+
+
+def engine_phase(torch, np, args, index, params, plan, queries,
+                 shared) -> dict:
+    """16 requests of 4 tenants (the 8 queries, twice) through ServeEngine:
+    dense batched, dense sequential, sharded batched.  Every request must
+    return the same ids, documents and wire bytes in all three runs, with
+    recall@5 = 1.0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.crypto import rlwe
+    from repro_torch.kernels import ext
+    from repro_torch.serve import EngineConfig, ServeEngine, SessionManager
+
+    shard_bytes = -(-index.num_rows // NUM_SHARDS) * params.num_chunks(
+        index.dim) * params.num_primes * params.n_poly * 4
+    runs = {
+        "dense_batched": EngineConfig(max_batch=8, trace=True),
+        "dense_sequential": EngineConfig(max_batch=1, sequential=True,
+                                         trace=True),
+        "sharded_batched": EngineConfig(
+            max_batch=8, trace=True, cache_config=rlwe.CandidateCacheConfig(
+                num_shards=NUM_SHARDS,
+                max_resident_bytes=BUDGET_SHARDS * shard_bytes)),
+    }
+    want = shared["want"]
+    out, results = {}, {}
+    for name, cfg in runs.items():
+        engine = ServeEngine(index, config=cfg, sessions=SessionManager(
+            rlwe_params=params, deterministic_seeds=True))
+        for t in range(TENANTS):
+            engine.open_session(f"tenant-{t}", n=index.dim, N=index.num_rows,
+                                k=plan.k, plan_kwargs={"kprime": 160})
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        # batched runs under torch.profiler (CUDA activity only) for the
+        # device's busy and idle share of the run's wall time
+        prof = (profile(activities=[ProfilerActivity.CUDA])
+                if not cfg.sequential else None)
+        if prof is not None:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        for j in range(2 * len(queries)):
+            engine.submit(f"tenant-{j % TENANTS}", queries[j % len(queries)],
+                          key=args.seed * 1000 + j)
+        res = engine.drain()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = None
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            _, busy_ms = device_busy(torch, prof)
+        launches = path_launches(f"engine {name}", ext.launch_counts())
+        engine.close()
+        check(len(res) == 2 * len(queries) and all(r.ok for r in res),
+              f"engine {name}: {[r.error for r in res if not r.ok]}")
+        recalls = [len(set(r.ids.tolist()) & set(
+            want[r.request_id % len(queries)].tolist())) / plan.k
+            for r in res]
+        check(all(x == 1.0 for x in recalls),
+              f"engine {name}: recall@{plan.k} {recalls}")
+        results[name] = res
+        summary = engine.metrics.summary()
+        agg = summary["aggregate"]
+        out[name] = dict(
+            wall_ms=wall_ms, num_batches=summary["num_batches"],
+            device_busy_ms=busy_ms,
+            device_idle_share=(None if busy_ms is None
+                               else 1.0 - busy_ms / wall_ms),
+            p50_latency_s=agg["p50_latency_s"],
+            p99_latency_s=agg["p99_latency_s"],
+            mean_latency_s=agg["mean_latency_s"],
+            stages=engine.trace_summary()["stages"],
+            cache_stats=engine.cache_stats(), launches=launches)
+    base = results["dense_batched"]
+    for name, res in results.items():
+        for a, b in zip(base, res):
+            check(a.request_id == b.request_id
+                  and np.array_equal(a.ids, b.ids) and a.docs == b.docs
+                  and a.transcript.total_bytes == b.transcript.total_bytes,
+                  f"engine {name}: request {b.request_id} differs from the "
+                  f"dense batched run")
+    return out
 
 
 def main(argv=None) -> int:
@@ -482,24 +702,41 @@ def main(argv=None) -> int:
     cache_s = time.perf_counter() - t0
     cache_launches = ext.launch_counts()
 
+    t0 = time.perf_counter()
     kernels = kernel_phase(torch, np, args, index, params, plan, queries)
-    serve = serve_phase(torch, np, args, index, cloud, params, plan, queries)
-    for kern in kernels:
-        kern["launches"] = (serve["launches_seq"].get(kern["name"], 0)
-                            + serve["launches_batch"].get(kern["name"], 0))
-        check(kern["launches"] > 0,
-              f"kernel {kern['name']} was not launched on the main path")
+    kernels_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shared, serve = serve_phase(torch, np, args, index, cloud, params, plan,
+                                queries)
+    serve_s = time.perf_counter() - t0
     for path in ("launches_seq", "launches_batch"):
-        for kern in kernels:
-            check(serve[path].get(kern["name"], 0) > 0,
-                  f"{path}: kernel {kern['name']} not launched")
+        path_launches(path, serve[path])
+    t0 = time.perf_counter()
+    cache_out = cache_phase(torch, np, args, cache, params, plan, shared)
+    cache_phase_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = engine_phase(torch, np, args, index, params, plan, queries,
+                          shared)
+    engine_s = time.perf_counter() - t0
+    paths = [serve["launches_seq"], serve["launches_batch"]] + [
+        run["launches"] for run in engine.values()]
+    for kern in kernels:
+        kern["launches"] = sum(p.get(kern["name"], 0) for p in paths)
     emit({"kernels": kernels})
     emit({"phase": "serve", "n_docs": args.n_docs, "dim": dim, "k": plan.k,
           "kprime": plan.kprime, "path": plan.path, "eps": plan.eps,
           "data_s": data_s, "index_s": index_s, "cache_build_s": cache_s,
           "cache_gb": cache.nbytes / 1e9, "cache_launches": cache_launches,
+          "kernels_phase_s": kernels_s, "phase_s": serve_s, **serve})
+    emit({"phase": "cache", "num_shards": NUM_SHARDS,
+          "phase_s": cache_phase_s, **cache_out})
+    emit({"phase": "engine", "requests": 2 * len(queries),
+          "tenants": TENANTS, "budget_shards": BUDGET_SHARDS,
+          "phase_s": engine_s, "runs": engine,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "total_s": time.perf_counter() - t_start, **serve})
+          "host_max_rss_gb": resource.getrusage(
+              resource.RUSAGE_SELF).ru_maxrss / 1e6,
+          "total_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -43,6 +43,26 @@ def candidate_cache(params: rlwe.RlweParams, polys: np.ndarray,
         cands_per_ct=cpt, num_chunks=chunks)
 
 
+def sharded_candidate_cache(params: rlwe.RlweParams, pool: np.ndarray,
+                            twiddles: np.ndarray, n_dim: int,
+                            config: Optional[rlwe.CandidateCacheConfig] = None,
+                            *, device: DeviceLike = None
+                            ) -> rlwe.ShardedCandidateCache:
+    """A sharded cache over ``ShardedCandidateCache.pool`` (host, (num_docs,
+    chunks, P, N)) and ``.twiddles`` (P, cpt, N) of the reference, under
+    ``config`` (the reference's knobs, field for field; build it from the
+    reference config's values).  The pool is copied once, so both caches
+    read the same rows without sharing memory."""
+    dev = resolve_device(device)
+    chunks, _, _ = rlwe._cache_geometry(params, n_dim)
+    pool = np.array(pool, np.int32)             # a private, writeable copy
+    if pool.shape[1:] != (chunks, params.num_primes, params.n_poly):
+        raise ValueError(f"pool shape {pool.shape} does not match params")
+    tw = torch.from_numpy(np.asarray(twiddles, np.int32).copy()).to(dev)
+    return rlwe._shard_pool(params, pool, n_dim,
+                            config or rlwe.CandidateCacheConfig(), tw)
+
+
 def secret_key(params: rlwe.RlweParams, s: np.ndarray, s_ntt: np.ndarray, *,
                device: DeviceLike = None) -> rlwe.RlweSecretKey:
     """A key from ``RlweSecretKey.s`` (N,) and ``.s_ntt`` (P, N)."""
@@ -52,4 +72,5 @@ def secret_key(params: rlwe.RlweParams, s: np.ndarray, s_ntt: np.ndarray, *,
         s_ntt=torch.from_numpy(np.asarray(s_ntt, np.int32)).to(dev))
 
 
-__all__ = ["flat_index", "candidate_cache", "secret_key"]
+__all__ = ["flat_index", "candidate_cache", "sharded_candidate_cache",
+           "secret_key"]

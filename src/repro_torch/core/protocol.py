@@ -92,16 +92,23 @@ class Documents:
 
 class RemoteRagCloud:
     """Holds the index + documents; executes modules 1, 2a, 2b, 2c on the
-    index's device.  The RLWE re-rank runs against the index's dense
-    NTT-domain candidate cache; ``use_candidate_cache=False`` packs the
-    candidates per request instead (the cold path, bit-identical)."""
+    index's device.  The RLWE re-rank runs against the index's NTT-domain
+    candidate cache, built once per (index, params, cache config) and
+    shared across clouds and engines: the dense device-resident pool by
+    default, or with ``cache_config`` (an `rlwe.CandidateCacheConfig`) the
+    corpus-scale `rlwe.ShardedCandidateCache` (host pool, LRU hot shards on
+    the device, per-request gather of the k' selected rows).
+    ``use_candidate_cache=False`` packs the candidates per request instead
+    (the cold path).  All three are bit-identical."""
 
     def __init__(self, index: FlatIndex, *,
                  rlwe_params: Optional[rlwe.RlweParams] = None,
-                 use_candidate_cache: bool = True):
+                 use_candidate_cache: bool = True,
+                 cache_config: Optional[rlwe.CandidateCacheConfig] = None):
         self.index = index
         self.rlwe_params = rlwe_params or rlwe.RlweParams()
         self.use_candidate_cache = use_candidate_cache
+        self.cache_config = cache_config
 
     @property
     def device(self) -> torch.device:
@@ -109,11 +116,13 @@ class RemoteRagCloud:
 
     @property
     def candidate_cache(self):
-        """The index's dense cache for this cloud's params (None when
-        disabled).  Built lazily, on the first RLWE request."""
+        """The index's cache for this cloud's (params, cache config) —
+        dense `rlwe.CandidateCache` or `rlwe.ShardedCandidateCache`; None
+        when disabled.  Built lazily, on the first RLWE request."""
         if not self.use_candidate_cache:
             return None
-        return self.index.candidate_cache(self.rlwe_params)
+        return self.index.candidate_cache(self.rlwe_params,
+                                          self.cache_config)
 
     def handle_request(self, req: Request, *, topk_fn=None) -> Reply:
         """Modules 1 + 2a, cloud half.  ``topk_fn(perturbed_batch, kprime)``

@@ -1,8 +1,10 @@
 """RNS-RLWE additively homomorphic encryption ("BFV-lite"), PyTorch.
 
-Counterpart of ``repro/crypto/rlwe.py`` for the dense-cache and cold
-paths (the sharded cache waits for a later slice).  Scheme, packing and
-correctness budget are the reference's; see its module docstring.
+Counterpart of ``repro/crypto/rlwe.py``: the cold path, the dense
+NTT-domain candidate cache and the corpus-scale `ShardedCandidateCache`
+(host pool, LRU device-resident hot shards, async admitter, per-request
+gather of the k' selected rows).  Scheme, packing and correctness budget
+are the reference's; see its module docstring.
 
   ring      R_q = Z_q[X]/(X^N + 1),  q = q_0 q_1 q_2  (RNS, ~20-bit NTT primes)
   enc(m)    c0 = a*s + e + Delta*m,  c1 = a;   a ~ U(R_q), e ~ CBD(eta)
@@ -18,14 +20,18 @@ tensors.  The bignum CRT lift of decryption stays on the host.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
-from typing import Sequence
+import threading
+import time
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.crypto import modring
 from repro_torch.crypto.modring import PrimeCtx
 from repro_torch.device import DeviceLike, resolve_device
@@ -332,8 +338,90 @@ class CandidateCache:
     def nbytes(self) -> int:
         return self.polys.numel() * 4
 
+    def host_pool(self) -> np.ndarray:
+        """Host copy of the packed pool, memoized on first use so every
+        sharded re-view (`shard_candidate_cache`) shares ONE host array no
+        matter how many configs consume it.  Zero-copy on the CPU; on the
+        card one block-wise device-to-host copy through small pinned
+        staging buffers into a pageable array (the pool is never packed a
+        second time)."""
+        pool = self.__dict__.get("_host_pool")
+        if pool is None:
+            # frozen dataclass: memoize via __dict__ (cached_property style)
+            pool = self.__dict__["_host_pool"] = _device_to_host(self.polys)
+        return pool
+
     def check_compatible(self, params: RlweParams, n_dim=None) -> None:
         _check_cache_compatible(self, params, n_dim)
+
+
+# pinned staging block for host <-> device pool copies (per buffer)
+_STAGE_BYTES = 64 << 20
+
+
+def _stage_rows(t_shape) -> int:
+    """Rows of an int32 (rows, ...) tensor per pinned staging buffer."""
+    return max(1, _STAGE_BYTES // max(4 * math.prod(t_shape[1:]), 1))
+
+
+def _device_to_host(t: torch.Tensor) -> np.ndarray:
+    """(rows, ...) int32 tensor -> host numpy array.  A CPU tensor is
+    returned as a view; a CUDA tensor is copied in row blocks through two
+    alternating pinned buffers (the device copy of one block overlaps the
+    host copy of the previous one)."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    out = np.empty(tuple(t.shape), np.int32)
+    host = torch.from_numpy(out)
+    block = _stage_rows(t.shape)
+    bufs = [torch.empty((block,) + tuple(t.shape[1:]), dtype=t.dtype,
+                        pin_memory=True) for _ in range(2)]
+    inflight: list = [None, None]        # (event, lo, hi) per buffer
+
+    def drain(j):
+        ev, lo, hi = inflight[j]
+        ev.synchronize()
+        host[lo:hi].copy_(bufs[j][:hi - lo])
+        inflight[j] = None
+
+    for i, lo in enumerate(range(0, t.shape[0], block)):
+        j = i % 2
+        if inflight[j] is not None:
+            drain(j)
+        hi = min(lo + block, t.shape[0])
+        bufs[j][:hi - lo].copy_(t[lo:hi], non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        inflight[j] = (ev, lo, hi)
+    for j in (0, 1):
+        if inflight[j] is not None:
+            drain(j)
+    return out
+
+
+def _host_to_device(src: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host rows -> a new tensor on ``device``, allocated and copied on the
+    caller's current stream (the admitter's side stream) in row blocks
+    through two alternating pinned buffers; the caller synchronizes.  On
+    the CPU the pool rows themselves are returned (no copy)."""
+    t = torch.from_numpy(src)
+    if device.type == "cpu":
+        return t
+    out = torch.empty(tuple(t.shape), dtype=t.dtype, device=device)
+    block = _stage_rows(t.shape)
+    bufs = [torch.empty((block,) + tuple(t.shape[1:]), dtype=t.dtype,
+                        pin_memory=True) for _ in range(2)]
+    events: list = [None, None]
+    for i, lo in enumerate(range(0, t.shape[0], block)):
+        j = i % 2
+        if events[j] is not None:
+            events[j].synchronize()      # the buffer's previous copy is done
+        hi = min(lo + block, t.shape[0])
+        bufs[j][:hi - lo].copy_(t[lo:hi])
+        out[lo:hi].copy_(bufs[j][:hi - lo], non_blocking=True)
+        events[j] = torch.cuda.Event()
+        events[j].record()
+    return out
 
 
 def _cache_geometry(params: RlweParams, n_dim: int) -> tuple:
@@ -359,19 +447,26 @@ def _check_cache_compatible(cache, params: RlweParams, n_dim=None) -> None:
             f"has n_dim={n_dim}")
 
 
-def _pack_corpus_ntt(params: RlweParams, emb: torch.Tensor) -> torch.Tensor:
+def _pack_corpus_ntt(params: RlweParams, emb: torch.Tensor, *,
+                     host: bool = False):
     """The corpus half of negacyclic packing: every document's chunks
     reverse-packed at slot 0 and forward-NTT'd per prime, (num_docs,
-    chunks, P, N) int32 on ``emb``'s device.
+    chunks, P, N) int32 — a tensor on ``emb``'s device, or with ``host``
+    a host numpy pool (the sharded cache's backing store).
 
     The reference packs the whole corpus on the host and copies it over;
     at 10^6 documents the pool is ~49 GB, so here the same arithmetic
     (fixed point, reversed placement, mod q, forward NTT) runs in document
-    blocks on the device, each block written into the preallocated pool."""
+    blocks on ``emb``'s device, each block written into the preallocated
+    pool (for a host pool, copied out block by block)."""
     num_docs, n_dim = emb.shape
     chunks, _, _ = _cache_geometry(params, n_dim)
-    pool = torch.empty((num_docs, chunks, params.num_primes, params.n_poly),
-                       dtype=torch.int32, device=emb.device)
+    shape = (num_docs, chunks, params.num_primes, params.n_poly)
+    if host:
+        out = np.empty(shape, np.int32)
+        pool = torch.from_numpy(out)
+    else:
+        pool = out = torch.empty(shape, dtype=torch.int32, device=emb.device)
     block = max(1, (1 << 24) // (chunks * params.n_poly))
     for lo in range(0, num_docs, block):
         ints = _fixed_point_t(emb[lo:lo + block], params.scale_c)  # (b, n_dim)
@@ -381,10 +476,11 @@ def _pack_corpus_ntt(params: RlweParams, emb: torch.Tensor) -> torch.Tensor:
             seg = ints[:, c * params.chunk:(c + 1) * params.chunk]
             # p[chunk - 1 - j] = seg[j]
             polys[:, c, params.chunk - seg.shape[1]:params.chunk] = seg.flip(-1)
-        for i, ctx in enumerate(params.ctxs):
-            pool[lo:lo + ints.shape[0], :, i] = ntt_ops.ntt_fwd(
-                torch.remainder(polys, ctx.q).to(torch.int32), ctx)
-    return pool
+        blk = torch.stack([
+            ntt_ops.ntt_fwd(torch.remainder(polys, ctx.q).to(torch.int32), ctx)
+            for ctx in params.ctxs], dim=2)                # (b, chunks, P, N)
+        pool[lo:lo + ints.shape[0]].copy_(blk)
+    return out
 
 
 def _slot_twiddles(params: RlweParams, n_dim: int,
@@ -408,6 +504,556 @@ def build_candidate_cache(params: RlweParams,
                                                   embeddings.device),
                           n_dim=n_dim, num_docs=num_docs, stride=stride,
                           cands_per_ct=cpt, num_chunks=chunks)
+
+
+# ---------------------------------------------------------------------------
+# cloud side: sharded device-resident candidate cache (corpus scale)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CandidateCacheConfig:
+    """Knobs for the sharded candidate cache (hashable: `FlatIndex` memoizes
+    one cache per (RlweParams value, config) pair).  The reference's
+    docstring (``repro/crypto/rlwe.py``) states each knob's regime.
+
+    shard_docs / num_shards   contiguous document ranges (``shard_docs``
+                              wins); default 8 shards.
+    max_resident_bytes        device budget for LRU-pinned hot shards
+                              (``None`` unbounded, ``0`` stream-only).
+    pin_on_access             allow admission of missed shards.
+    async_admission           background admitter (True) or synchronous
+                              first-touch LRU (False, the replay mode).
+    admit_threshold           (async) admit on the n-th touch in a window.
+    admit_window              (async) halve every touch counter each
+                              ``admit_window`` counted touches; ``None``
+                              resolves to ``max(8, num_shards)``.
+    max_pending_admissions    (async) bound on queued admissions; excess
+                              requests are dropped and counted.
+    """
+    shard_docs: Optional[int] = None
+    num_shards: Optional[int] = None
+    max_resident_bytes: Optional[int] = None
+    pin_on_access: bool = True
+    async_admission: bool = True
+    admit_threshold: int = 2
+    admit_window: Optional[int] = None
+    max_pending_admissions: int = 4
+
+    def __post_init__(self):
+        # CLI-reachable knobs: fail loudly at construction, not mid-serve
+        if self.admit_threshold < 1:
+            raise ValueError(
+                f"admit_threshold must be >= 1, got {self.admit_threshold}")
+        if self.admit_window is not None and self.admit_window < 1:
+            raise ValueError(
+                f"admit_window must be >= 1, got {self.admit_window}")
+        if self.max_pending_admissions < 1:
+            raise ValueError(f"max_pending_admissions must be >= 1, got "
+                             f"{self.max_pending_admissions}")
+
+    def resolve_admit_window(self, num_shards: int) -> int:
+        """``None`` -> the regime-separating auto window."""
+        if self.admit_window is not None:
+            return self.admit_window
+        return max(8, num_shards)
+
+    def resolve_shard_docs(self, num_docs: int) -> int:
+        if self.shard_docs is not None:
+            if self.shard_docs <= 0:        # CLI-reachable: fail loudly
+                raise ValueError(
+                    f"shard_docs must be positive, got {self.shard_docs}")
+            return self.shard_docs
+        n_shards = self.num_shards if self.num_shards is not None else 8
+        if n_shards <= 0:
+            raise ValueError(f"num_shards must be positive, got {n_shards}")
+        return max(1, -(-num_docs // n_shards))
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedCandidateCache:
+    """Capacity-aware sharded view of the NTT-domain candidate pool.
+
+    The per-document plaintexts live in a flat host pool (pageable numpy)
+    partitioned into contiguous document shards: document d maps to shard
+    ``d // shard_docs``, local row ``d % shard_docs``.  The device (the
+    twiddles' device) holds only an LRU set of pinned hot shards bounded by
+    ``max_resident_bytes`` and the per-request gather buffer of the k'
+    selected rows (`index_select` from a resident shard, or a host row
+    gather through a pinned buffer for a non-resident one).  Gathered rows
+    are the exact pool rows the dense cache would select, so sharded
+    scoring is bit-identical to the dense cache whatever the resident set,
+    eviction history or in-flight admission.
+
+    Admission (see `CandidateCacheConfig`) follows the reference: in async
+    mode a missed shard's decayed touch counter must reach
+    ``admit_threshold`` before an admission is enqueued to the background
+    admitter thread; `gather` never waits on it.  The admitter copies the
+    shard on its own CUDA stream (pinned staging blocks), synchronizes the
+    copy's event, and only then swaps the shard in under the cache lock.
+    A gather reading a resident shard records its own stream on the shard
+    tensor, so an eviction cannot hand the shard's memory to the next
+    admission while that gather still reads it.  The thread retires as
+    soon as its queue is empty; `flush` and `close` wait for the queue and
+    join it.  With ``async_admission=False`` admission is the synchronous
+    first-touch LRU whose traces the determinism tests replay.
+    ``hits``/``misses`` count shard-group lookups (one per distinct shard
+    touched by a gather), not documents.
+    """
+    params: RlweParams
+    twiddles: torch.Tensor         # (P, cpt, N) — same as the dense cache
+    n_dim: int
+    num_docs: int
+    stride: int
+    cands_per_ct: int
+    num_chunks: int
+    shard_docs: int
+    pool: np.ndarray               # host (num_docs, chunks, P, N) backing store
+    shards: list                   # views into ``pool``, <= shard_docs docs each
+    epoch: int = 0                 # corpus epoch the pool was packed at
+    max_resident_bytes: Optional[int] = None
+    pin_on_access: bool = True
+    async_admission: bool = True
+    admit_threshold: int = 2
+    admit_window: int = 64
+    max_pending_admissions: int = 4
+    _resident: collections.OrderedDict = dataclasses.field(
+        default_factory=collections.OrderedDict, repr=False)
+    hits: int = 0
+    misses: int = 0
+    evictions: int = 0
+    gathered_bytes: int = 0        # host->device on-demand row traffic
+    peak_resident_bytes: int = 0
+    admissions: int = 0            # completed admissions (sync + async + pin)
+    async_admissions: int = 0      # ... of which completed on the admitter
+    prefetches: int = 0            # shard touches recorded via `prefetch`
+    admit_enqueued: int = 0        # admissions handed to the admitter
+    admit_dropped: int = 0         # admission requests dropped (queue full)
+    policy_deferrals: int = 0      # touches below admit_threshold (no admit)
+    admit_failures: int = 0        # admitter copies that raised (dropped)
+
+    def __post_init__(self):
+        # one lock guards the resident set + policy counters; the
+        # condition wakes `flush` waiters when an admission completes
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._queue: collections.deque = collections.deque()
+        self._inflight: set = set()       # enqueued or mid-copy shard ids
+        self._touch_counts: dict = {}     # shard id -> decayed touch count
+        self._touches = 0                 # counted touches since build
+        self._prefetched: set = set()     # touches already counted upstream
+        self._worker: Optional[threading.Thread] = None
+        self._side_stream = None          # the admitter's CUDA stream
+        self._admit_hook = None           # test seam: called(s) pre-copy
+        # telemetry sink, re-bound by the serving engine every dispatch
+        self.tracer = obs.NULL_TRACER
+        self._trace_batch: Optional[int] = None
+
+    def set_trace_context(self, tracer, batch_id: Optional[int]) -> None:
+        """Bind the tracer + current batch id for spans this cache emits
+        (including admissions completed later on the admitter thread)."""
+        self.tracer = tracer if tracer is not None else obs.NULL_TRACER
+        self._trace_batch = batch_id
+
+    @property
+    def device(self) -> torch.device:
+        return self.twiddles.device
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def pool_nbytes(self) -> int:
+        """Total host pool size — what the dense cache would hold on device."""
+        return sum(s.nbytes for s in self.shards)
+
+    def host_pool(self) -> np.ndarray:
+        return self.pool
+
+    def _resident_bytes_locked(self) -> int:
+        return sum(v.numel() * 4 for v in self._resident.values())
+
+    @property
+    def resident_bytes(self) -> int:
+        with self._lock:
+            return self._resident_bytes_locked()
+
+    @property
+    def resident_shards(self) -> tuple:
+        """Resident shard ids, LRU -> MRU."""
+        with self._lock:
+            return tuple(self._resident.keys())
+
+    def stats(self) -> dict:
+        # one lock scope: the admitter swaps/evicts concurrently
+        with self._lock:
+            resident_bytes = self._resident_bytes_locked()
+            resident_shards = tuple(self._resident.keys())
+            pending = len(self._inflight)
+        return {"hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions,
+                "gathered_bytes": self.gathered_bytes,
+                "resident_bytes": resident_bytes,
+                "peak_resident_bytes": self.peak_resident_bytes,
+                "pool_bytes": self.pool_nbytes,
+                "num_shards": self.num_shards,
+                "resident_shards": resident_shards,
+                "admissions": self.admissions,
+                "async_admissions": self.async_admissions,
+                "prefetches": self.prefetches,
+                "admit_enqueued": self.admit_enqueued,
+                "admit_dropped": self.admit_dropped,
+                "policy_deferrals": self.policy_deferrals,
+                "admit_failures": self.admit_failures,
+                "pending_admissions": pending,
+                "epoch": self.epoch}
+
+    def check_compatible(self, params: RlweParams, n_dim=None) -> None:
+        _check_cache_compatible(self, params, n_dim)
+
+    def shard_of(self, doc_id: int) -> int:
+        return int(doc_id) // self.shard_docs
+
+    def _shard_ids(self, flat: np.ndarray) -> np.ndarray:
+        """Validated document ids -> shard ids (shared by `gather` and
+        `prefetch`)."""
+        if flat.size and (flat.min() < 0 or flat.max() >= self.num_docs):
+            # negative ids would alias shards[-1] via Python indexing and
+            # silently gather the wrong document; fail loudly instead
+            raise IndexError(
+                f"candidate ids must be in [0, {self.num_docs}); got "
+                f"[{flat.min()}, {flat.max()}]")
+        return flat // self.shard_docs
+
+    def pin(self, shard_id: int) -> None:
+        """Explicitly admit a shard to device residency (LRU position =
+        most recent); evicts oldest shards if over budget.  Synchronous:
+        the shard is resident on return."""
+        with self.tracer.span("cache_pin", shard=int(shard_id),
+                              batch_id=self._trace_batch):
+            with self._lock:
+                self._admit_locked(int(shard_id))
+
+    # -- admission: shared swap-in (caller holds the lock) -------------------
+
+    def _fits_budget(self, s: int) -> bool:
+        return (self.max_resident_bytes is None
+                or self.shards[s].nbytes <= self.max_resident_bytes)
+
+    def _swap_in_locked(self, s: int, arr: torch.Tensor) -> None:
+        """Install a completed device copy of shard ``s``: evict LRU-first
+        down to budget, then publish."""
+        nbytes = self.shards[s].nbytes
+        if self.max_resident_bytes is not None:
+            while (self._resident_bytes_locked() + nbytes
+                   > self.max_resident_bytes):
+                evicted, _ = self._resident.popitem(last=False)
+                self.evictions += 1
+                self.tracer.event("cache_evict", shard=int(evicted),
+                                  batch_id=self._trace_batch)
+        self._resident[s] = arr
+        self.admissions += 1
+        self.peak_resident_bytes = max(self.peak_resident_bytes,
+                                       self._resident_bytes_locked())
+
+    def _stage_copy(self, s: int, stream=None) -> torch.Tensor:
+        """A complete device copy of shard ``s``: allocated and copied on
+        ``stream`` (the current stream when None), finished before return."""
+        if self.device.type == "cpu":
+            return _host_to_device(self.shards[s], self.device)
+        stream = stream or torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(stream):
+            arr = _host_to_device(self.shards[s], self.device)
+            done = torch.cuda.Event()
+            done.record(stream)
+        done.synchronize()
+        return arr
+
+    def _admit_locked(self, s: int) -> None:
+        """Synchronous admission (legacy mode, and `pin`): copy + swap."""
+        if s in self._resident:
+            self._resident.move_to_end(s)
+            return
+        if not self._fits_budget(s):
+            return                  # shard alone exceeds the budget: stream
+        with self.tracer.span("cache_admit", shard=int(s),
+                              batch_id=self._trace_batch,
+                              bytes=int(self.shards[s].nbytes)):
+            self._swap_in_locked(s, self._stage_copy(s))
+
+    # -- admission: frequency-aware policy + background admitter -------------
+
+    def _touch_locked(self, s: int) -> None:
+        """Count one (non-prefetched) touch of a missed shard and enqueue a
+        background admission when the decayed counter reaches the
+        threshold."""
+        if self.max_resident_bytes == 0 or not self._fits_budget(s):
+            return                  # stream-only / oversized: never admit
+        self._touches += 1
+        if self._touches % self.admit_window == 0:
+            # decay: halve every counter each window; sub-1 entries age out
+            self._touch_counts = {k: v / 2
+                                  for k, v in self._touch_counts.items()
+                                  if v >= 1.0}
+        count = self._touch_counts.get(s, 0.0) + 1.0
+        self._touch_counts[s] = count
+        if count < self.admit_threshold:
+            self.policy_deferrals += 1
+            return
+        if s in self._resident or s in self._inflight:
+            return
+        if len(self._queue) >= self.max_pending_admissions:
+            self.admit_dropped += 1   # counter keeps it eligible next touch
+            return
+        self._touch_counts.pop(s, None)
+        self._inflight.add(s)
+        self._queue.append((s, self._trace_batch))
+        self.admit_enqueued += 1
+        if self._worker is None:
+            self._worker = threading.Thread(
+                target=self._admit_worker, name="shard-admitter", daemon=True)
+            self._worker.start()
+
+    def _admit_worker(self) -> None:
+        """Background admitter: drain the queue one shard at a time, then
+        retire.  The copy runs outside the lock on this thread's own CUDA
+        stream (the request path keeps streaming from the host pool
+        meanwhile); only the final swap takes the lock.  Retiring and
+        spawning both happen under the lock, so no admission can fall
+        between a retiring worker and the next one."""
+        while True:
+            with self._cv:
+                if not self._queue:
+                    self._worker = None
+                    self._cv.notify_all()
+                    return
+                s, parent = self._queue.popleft()
+            tracer = self.tracer
+            t0 = tracer.clock() if tracer.enabled else 0.0
+            error = {}
+            try:
+                hook = self._admit_hook   # test seam: delay/observe the copy
+                if hook is not None:
+                    hook(s)
+                if self.device.type == "cuda" and self._side_stream is None:
+                    self._side_stream = torch.cuda.Stream(self.device)
+                arr = self._stage_copy(s, self._side_stream)
+            except Exception as e:        # noqa: BLE001 — a failed copy must
+                arr = None                # not strand flush()/later admits;
+                error = {"error_type": type(e).__name__}   # counted, traced
+            swapped = False
+            with self._cv:
+                self._inflight.discard(s)
+                if arr is None:
+                    self.admit_failures += 1   # dropped; next touch retries
+                elif s in self._resident:
+                    self._resident.move_to_end(s)
+                elif self._fits_budget(s) and self.max_resident_bytes != 0:
+                    self._swap_in_locked(s, arr)
+                    self.async_admissions += 1
+                    swapped = True
+                self._cv.notify_all()     # wake flush()
+            if tracer.enabled:
+                tracer.record("cache_admit", t0, tracer.clock(),
+                              track="admitter", batch_id=parent,
+                              shard=int(s),
+                              bytes=int(self.shards[s].nbytes),
+                              ok=swapped, **error)
+
+    def prefetch(self, ids) -> int:
+        """Serving-engine admission hook: record the shard touches implied
+        by a batch's top-k' candidate ``ids`` and enqueue the admissions the
+        policy grants now, before the request's encryption, so the
+        background copy overlaps it.  The following `gather` of the same
+        ids does not count these touches again.  Returns the number of
+        shards touched; 0 when admission is off or synchronous."""
+        if not (self.pin_on_access and self.async_admission):
+            return 0
+        flat = np.asarray(ids).reshape(-1)
+        shard_ids = self._shard_ids(flat)
+        if flat.size == 0:
+            return 0
+        tracer = self.tracer
+        t0 = tracer.clock() if tracer.enabled else 0.0
+        touched = 0
+        with self._lock:
+            # one fresh credit set per batch (see the reference)
+            self._prefetched = set()
+            for s in np.unique(shard_ids):
+                s = int(s)
+                if s in self._resident:
+                    continue          # gather will hit; nothing to admit
+                self._touch_locked(s)
+                self._prefetched.add(s)
+                self.prefetches += 1
+                touched += 1
+        if tracer.enabled:
+            tracer.record("cache_prefetch", t0, tracer.clock(),
+                          batch_id=self._trace_batch, shards=touched)
+        return touched
+
+    def flush(self, timeout: float = 60.0) -> None:
+        """Block until every enqueued admission has completed and the
+        admitter thread has exited (TimeoutError after ``timeout`` s).
+        Request paths never need this; tests, benchmarks and `close` do."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while self._queue or self._inflight or self._worker is not None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(
+                        f"shard admissions did not drain within {timeout}s "
+                        f"({len(self._queue)} queued, "
+                        f"{len(self._inflight)} in flight)")
+                self._cv.wait(remaining)
+            worker = self._worker
+        if worker is not None:
+            worker.join(max(0.0, deadline - time.monotonic()))
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Let pending admissions complete and join the admitter thread.
+        Idempotent; the cache stays usable (a later admission starts a new
+        worker)."""
+        self.flush(timeout)
+
+    def _host_rows(self, s: int, loc: np.ndarray) -> torch.Tensor:
+        """Rows ``loc`` of non-resident shard ``s``, on the cache's device:
+        a host row gather into a pinned buffer, then one copy to the card
+        (the caching host allocator keeps the buffer until it completes)."""
+        src = torch.from_numpy(self.shards[s])
+        idx = torch.from_numpy(np.ascontiguousarray(loc, np.int64))
+        if self.device.type == "cpu":
+            return src.index_select(0, idx)
+        buf = torch.empty((idx.numel(),) + tuple(src.shape[1:]),
+                          dtype=src.dtype, pin_memory=True)
+        torch.index_select(src, 0, idx, out=buf)
+        return buf.to(self.device, non_blocking=True)
+
+    def gather(self, ids) -> torch.Tensor:
+        """On-demand gather of the selected candidates' cached rows:
+        (B, num_cands) document ids -> (B, num_cands, chunks, P, N) on the
+        cache's device, touching only those documents.
+
+        Ids are grouped by shard; resident shards gather device-side
+        (`index_select`), non-resident shards gather just the selected rows
+        from the host pool.  With ``pin_on_access`` a miss feeds the
+        admission policy (synchronous first-touch LRU admission in legacy
+        mode, else a counted touch that may enqueue a background admission
+        — the gather itself never waits on the copy)."""
+        ids = np.asarray(ids)
+        if ids.ndim != 2:
+            raise ValueError(f"ids must be (B, num_cands), got {ids.shape}")
+        bsz, nc = ids.shape
+        tracer = self.tracer
+        t0 = tracer.clock() if tracer.enabled else 0.0
+        h0, m0, g0 = self.hits, self.misses, self.gathered_bytes
+        flat = ids.reshape(-1).astype(np.int64)
+        shard_ids = self._shard_ids(flat)
+        local = flat - shard_ids * self.shard_docs
+        order = np.argsort(shard_ids, kind="stable")      # group by shard
+        uniq, starts = np.unique(shard_ids[order], return_index=True)
+        bounds = np.append(starts, order.size)
+        row_shape = (self.num_chunks, self.params.num_primes,
+                     self.params.n_poly)
+        out = torch.empty((flat.size,) + row_shape, dtype=torch.int32,
+                          device=self.device)
+        for s, lo, hi in zip(uniq, bounds[:-1], bounds[1:]):
+            s = int(s)
+            sel = order[lo:hi]
+            loc = local[sel]
+            with self._lock:                  # vs admitter swap/evict
+                dev = self._resident.get(s)
+                if dev is not None:
+                    self.hits += 1
+                    self._resident.move_to_end(s)         # LRU touch
+                    self._prefetched.discard(s)   # credit no longer needed
+                elif self.pin_on_access:
+                    if not self.async_admission:
+                        self._admit_locked(s)
+                    elif s in self._prefetched:
+                        self._prefetched.discard(s)   # counted at prefetch
+                    else:
+                        self._touch_locked(s)
+            if dev is not None:
+                rows = dev.index_select(
+                    0, torch.from_numpy(loc).to(self.device))
+                if self.device.type == "cuda":
+                    # an eviction frees ``dev``; its memory must not go to
+                    # the next admission before this stream has read it
+                    dev.record_stream(torch.cuda.current_stream(self.device))
+            else:
+                self.misses += 1
+                rows = self._host_rows(s, loc)
+                self.gathered_bytes += rows.numel() * 4
+            out.index_copy_(0, torch.from_numpy(sel).to(self.device), rows)
+        out = out.reshape((bsz, nc) + row_shape)
+        if tracer.enabled:
+            tracer.record("cache_gather", t0, tracer.clock(),
+                          batch_id=self._trace_batch, lanes=int(bsz),
+                          num_cands=int(nc), shards=int(uniq.size),
+                          hits=self.hits - h0, misses=self.misses - m0,
+                          bytes=self.gathered_bytes - g0)
+        return out
+
+
+def _shard_pool(params: RlweParams, pool: np.ndarray, n_dim: int,
+                config: CandidateCacheConfig, twiddles: torch.Tensor,
+                epoch: int = 0) -> ShardedCandidateCache:
+    num_docs = pool.shape[0]
+    chunks, stride, cpt = _cache_geometry(params, n_dim)
+    shard_docs = config.resolve_shard_docs(num_docs)
+    shards = [pool[lo:lo + shard_docs]                    # views, no copy
+              for lo in range(0, num_docs, shard_docs)]
+    return ShardedCandidateCache(
+        params=params, twiddles=twiddles, n_dim=n_dim,
+        num_docs=num_docs, stride=stride, cands_per_ct=cpt,
+        num_chunks=chunks, shard_docs=shard_docs, pool=pool, shards=shards,
+        epoch=epoch,
+        max_resident_bytes=config.max_resident_bytes,
+        pin_on_access=config.pin_on_access,
+        async_admission=config.async_admission,
+        admit_threshold=config.admit_threshold,
+        admit_window=config.resolve_admit_window(len(shards)),
+        max_pending_admissions=config.max_pending_admissions)
+
+
+def build_sharded_candidate_cache(
+        params: RlweParams, embeddings: torch.Tensor, *,
+        config: Optional[CandidateCacheConfig] = None
+) -> ShardedCandidateCache:
+    """Pack + forward-NTT the corpus once, on the embeddings' device, into
+    a host pool, and partition it into shards (resident shards and gathers
+    live on the embeddings' device)."""
+    config = config if config is not None else CandidateCacheConfig()
+    n_dim = embeddings.shape[1]
+    pool = _pack_corpus_ntt(params, embeddings, host=True)
+    return _shard_pool(params, pool, n_dim, config,
+                       _slot_twiddles(params, n_dim, embeddings.device))
+
+
+def shard_candidate_cache(cache, config: Optional[CandidateCacheConfig] = None
+                          ) -> ShardedCandidateCache:
+    """Re-view an existing cache's pool (dense `CandidateCache` or another
+    `ShardedCandidateCache`) as a sharded cache under a new config, without
+    re-packing: the dense cache's memoized host pool is shared by every
+    view, and bit identity between the views holds by construction."""
+    config = config if config is not None else CandidateCacheConfig()
+    return _shard_pool(cache.params, cache.host_pool(), cache.n_dim, config,
+                       cache.twiddles, epoch=getattr(cache, "epoch", 0))
+
+
+def densify_candidate_cache(cache: ShardedCandidateCache) -> CandidateCache:
+    """Dense device-resident view of a sharded cache's pool (one copy to
+    the cache's device, no re-pack; the host pool stays shared)."""
+    pool = cache.host_pool()
+    dense = CandidateCache(
+        params=cache.params,
+        polys=torch.from_numpy(pool).to(cache.device),
+        twiddles=cache.twiddles, n_dim=cache.n_dim,
+        num_docs=pool.shape[0], stride=cache.stride,
+        cands_per_ct=cache.cands_per_ct, num_chunks=cache.num_chunks)
+    dense.__dict__["_host_pool"] = pool         # keep the pool shared
+    return dense
 
 
 def _ids_tensor(ids, device: torch.device) -> torch.Tensor:
@@ -441,14 +1087,23 @@ def _scores_pipeline(c0, c1, g, twiddles, ctxs, cpt: int, pad: int):
 
 def encrypted_scores_cached_batch(params: RlweParams,
                                   q_cts: Sequence[QueryCiphertext],
-                                  cache: CandidateCache,
-                                  cand_ids) -> ScoreCiphertextBatch:
-    """Batched ct (x) p against cached NTT-domain candidates: one gather of
-    k' cached rows per lane, then per prime 2 query forward NTTs and one
-    fused rotate -> Hadamard -> mod-sum -> inverse-NTT launch.  Bit
-    identical to `pack_candidates_batch` + `encrypted_scores_batch_stacked`."""
-    ids = _ids_tensor(cand_ids, cache.polys.device)
-    assert ids.dim() == 2, "cand_ids must be (B, num_cands)"
+                                  cache, cand_ids) -> ScoreCiphertextBatch:
+    """Batched ct (x) p against cached NTT-domain candidates (``cache`` is a
+    dense `CandidateCache` or a `ShardedCandidateCache`): one gather of k'
+    cached rows per lane (device `index_select` for the dense cache, the
+    shard-grouped on-demand gather for the sharded one), then per prime 2
+    query forward NTTs and one fused rotate -> Hadamard -> mod-sum ->
+    inverse-NTT launch.  Identical pipeline below the gather for both
+    kinds, so both are bit identical to `pack_candidates_batch` +
+    `encrypted_scores_batch_stacked`."""
+    sharded = isinstance(cache, ShardedCandidateCache)
+    if sharded:
+        ids = np.asarray(cand_ids.cpu() if isinstance(cand_ids, torch.Tensor)
+                         else cand_ids)
+    else:
+        ids = _ids_tensor(cand_ids, cache.polys.device)
+    if ids.ndim != 2:
+        raise ValueError(f"cand_ids must be (B, num_cands), got {ids.shape}")
     bsz, num_cands = ids.shape
     assert len(q_cts) == bsz
     cache.check_compatible(params, q_cts[0].n_dim)
@@ -456,8 +1111,11 @@ def encrypted_scores_cached_batch(params: RlweParams,
     pad = -(-num_cands // cpt) * cpt - num_cands
     c0 = torch.stack([q.c0 for q in q_cts])                # (B, chunks, P, N)
     c1 = torch.stack([q.c1 for q in q_cts])
-    g = cache.polys.index_select(0, ids.reshape(-1)).reshape(
-        (bsz, num_cands) + tuple(cache.polys.shape[1:]))  # (B, nc, chunks, P, N)
+    if sharded:
+        g = cache.gather(ids)                  # (B, nc, chunks, P, N)
+    else:
+        g = cache.polys.index_select(0, ids.reshape(-1)).reshape(
+            (bsz, num_cands) + tuple(cache.polys.shape[1:]))
     all0, all1 = _scores_pipeline(c0, c1, g, cache.twiddles, params.ctxs,
                                   cpt, pad)
     return ScoreCiphertextBatch(c0=all0, c1=all1, n_dim=cache.n_dim,
@@ -465,11 +1123,12 @@ def encrypted_scores_cached_batch(params: RlweParams,
 
 
 def encrypted_scores_cached(params: RlweParams, q_ct: QueryCiphertext,
-                            cache: CandidateCache, cand_ids) -> ScoreCiphertexts:
+                            cache, cand_ids) -> ScoreCiphertexts:
     """Cached ct (x) p for one query (the B=1 slice of the batch version)."""
+    if isinstance(cand_ids, torch.Tensor):
+        cand_ids = cand_ids.cpu().numpy()
     return encrypted_scores_cached_batch(
-        params, [q_ct], cache, _ids_tensor(cand_ids, cache.polys.device)[None]
-    ).lane(0)
+        params, [q_ct], cache, np.asarray(cand_ids)[None]).lane(0)
 
 
 # ---------------------------------------------------------------------------
@@ -565,7 +1224,10 @@ def cosine_distances(scores: np.ndarray) -> np.ndarray:
 __all__ = [
     "RlweParams", "RlweSecretKey", "QueryCiphertext", "PackedCandidates",
     "ScoreCiphertexts", "ScoreCiphertextBatch", "CandidateCache",
-    "params_key", "build_candidate_cache", "keygen", "encrypt_query",
+    "CandidateCacheConfig", "ShardedCandidateCache",
+    "build_sharded_candidate_cache", "shard_candidate_cache",
+    "densify_candidate_cache", "params_key", "build_candidate_cache",
+    "keygen", "encrypt_query",
     "decrypt_scores", "decrypt_scores_batch", "decrypt_rns",
     "extract_scores", "pack_candidates", "pack_candidates_batch",
     "encrypted_scores", "encrypted_scores_batch",

@@ -26,6 +26,10 @@ int fused_rerank_intt_launch(const void* polys, const void* tw,
                              void* out0, void* out1, int batch, int num_ct,
                              int cpt, int chunks, int n, uint32_t q,
                              uint64_t m, uint32_t n_inv, void* stream);
+int fused_rerank_launch(const void* polys, const void* tw, const void* f0,
+                        const void* f1, void* out0, void* out1, int batch,
+                        int num_ct, int cpt, int chunks, int n, uint32_t q,
+                        uint64_t m, void* stream);
 int score_topk_launch(const void* queries, const void* corpus, void* vals,
                       void* idx, int batch, int n_rows, int dim, int kk,
                       int tile, void* stream);
@@ -101,32 +105,41 @@ Tensor pointwise_mul(const Tensor& a, const Tensor& b, int64_t q, int64_t m) {
   return out;
 }
 
-std::tuple<Tensor, Tensor> fused_rerank_intt(const Tensor& polys,
-                                             const Tensor& tw,
-                                             const Tensor& f0,
-                                             const Tensor& f1,
-                                             const Tensor& ipsi, int64_t q,
-                                             int64_t m, int64_t n_inv) {
+// shape checks shared by both fused re-rank kernels: polys (B, num_ct,
+// cpt*chunks, N), tw (cpt, N), f0/f1 (B, chunks, N)
+void check_fused(const Tensor& polys, const Tensor& tw, const Tensor& f0,
+                 const Tensor& f1, int64_t q) {
   check_tensor(polys, "polys", torch::kInt32, 4);
   check_tensor(tw, "tw", torch::kInt32, 2);
   check_tensor(f0, "f0", torch::kInt32, 3);
   check_tensor(f1, "f1", torch::kInt32, 3);
-  check_tensor(ipsi, "ipsi", torch::kInt32, 1);
   const int64_t bsz = polys.size(0), num_ct = polys.size(1);
   const int64_t rows = polys.size(2), n = polys.size(3);
   const int64_t cpt = tw.size(0), chunks = f0.size(1);
   check_ring(n, q);
   TORCH_CHECK_VALUE(rows == cpt * chunks, "rows ", rows, " != cpt ", cpt,
                     " * chunks ", chunks);
-  TORCH_CHECK_VALUE(tw.size(1) == n && ipsi.size(0) == n &&
-                        f0.size(0) == bsz && f0.size(2) == n &&
+  TORCH_CHECK_VALUE(tw.size(1) == n && f0.size(0) == bsz && f0.size(2) == n &&
                         f1.sizes() == f0.sizes(),
                     "inconsistent shapes: polys ", polys.sizes(), ", tw ",
-                    tw.sizes(), ", f0 ", f0.sizes(), ", f1 ", f1.sizes(),
-                    ", ipsi ", ipsi.sizes());
+                    tw.sizes(), ", f0 ", f0.sizes(), ", f1 ", f1.sizes());
   TORCH_CHECK_VALUE(rows * (q - 1) < (int64_t{1} << 31),
                     "int32 accumulator would wrap: rows ", rows, ", q ", q);
   TORCH_CHECK_VALUE(bsz < 65536 && num_ct < INT32_MAX, "grid too large");
+}
+
+std::tuple<Tensor, Tensor> fused_rerank_intt(const Tensor& polys,
+                                             const Tensor& tw,
+                                             const Tensor& f0,
+                                             const Tensor& f1,
+                                             const Tensor& ipsi, int64_t q,
+                                             int64_t m, int64_t n_inv) {
+  check_fused(polys, tw, f0, f1, q);
+  check_tensor(ipsi, "ipsi", torch::kInt32, 1);
+  const int64_t bsz = polys.size(0), num_ct = polys.size(1);
+  const int64_t n = polys.size(3);
+  TORCH_CHECK_VALUE(ipsi.size(0) == n, "ipsi has ", ipsi.size(0),
+                    " entries, N is ", n);
   const c10::cuda::CUDAGuard guard(polys.device());
   Tensor out0 = torch::empty({bsz, num_ct, n}, polys.options());
   Tensor out1 = torch::empty_like(out0);
@@ -134,11 +147,31 @@ std::tuple<Tensor, Tensor> fused_rerank_intt(const Tensor& polys,
                    polys.data_ptr(), tw.data_ptr(), f0.data_ptr(),
                    f1.data_ptr(), ipsi.data_ptr(), out0.data_ptr(),
                    out1.data_ptr(), static_cast<int>(bsz),
-                   static_cast<int>(num_ct), static_cast<int>(cpt),
-                   static_cast<int>(chunks), static_cast<int>(n),
+                   static_cast<int>(num_ct), static_cast<int>(tw.size(0)),
+                   static_cast<int>(f0.size(1)), static_cast<int>(n),
                    static_cast<uint32_t>(q), static_cast<uint64_t>(m),
                    static_cast<uint32_t>(n_inv), stream()),
                "fused_rerank_intt_launch");
+  return {out0, out1};
+}
+
+std::tuple<Tensor, Tensor> fused_rerank(const Tensor& polys, const Tensor& tw,
+                                        const Tensor& f0, const Tensor& f1,
+                                        int64_t q, int64_t m) {
+  check_fused(polys, tw, f0, f1, q);
+  const int64_t bsz = polys.size(0), num_ct = polys.size(1);
+  const int64_t n = polys.size(3);
+  const c10::cuda::CUDAGuard guard(polys.device());
+  Tensor out0 = torch::empty({bsz, num_ct, n}, polys.options());
+  Tensor out1 = torch::empty_like(out0);
+  check_launch(fused_rerank_launch(
+                   polys.data_ptr(), tw.data_ptr(), f0.data_ptr(),
+                   f1.data_ptr(), out0.data_ptr(), out1.data_ptr(),
+                   static_cast<int>(bsz), static_cast<int>(num_ct),
+                   static_cast<int>(tw.size(0)), static_cast<int>(f0.size(1)),
+                   static_cast<int>(n), static_cast<uint32_t>(q),
+                   static_cast<uint64_t>(m), stream()),
+               "fused_rerank_launch");
   return {out0, out1};
 }
 
@@ -179,6 +212,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
           "elementwise modular product (csrc/ntt.cu)");
   mod.def("fused_rerank_intt", &fused_rerank_intt,
           "fused rotate/Hadamard/sum/inverse NTT (csrc/fused.cu)");
+  mod.def("fused_rerank", &fused_rerank,
+          "fused rotate/Hadamard/sum, NTT domain (csrc/fused.cu)");
   mod.def("score_topk", &score_topk,
           "fused scoring + per-tile top-kk (csrc/scoretopk.cu)");
 }

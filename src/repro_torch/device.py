@@ -13,7 +13,8 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda``; raises if CUDA is asked for and absent."""
+    """``None`` -> ``cuda`` (the current CUDA device, with its index);
+    raises if CUDA is asked for and absent."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -21,6 +22,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch path")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        # the device tensors report: "cuda" and "cuda:0" compare equal after
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

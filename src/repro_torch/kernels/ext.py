@@ -29,20 +29,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3")
 
 _lock = threading.Lock()
 _ext = None
+_count_lock = threading.Lock()
 _launches: collections.Counter = collections.Counter()
 build_info: dict = {}       # builds started, seconds of the last build
 
 
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    # the serving engine's retry lane launches kernels from its own thread
+    with _count_lock:
+        _launches[name] += 1
 
 
 def reset_launches() -> None:
-    _launches.clear()
+    with _count_lock:
+        _launches.clear()
 
 
 def launch_counts() -> dict:
-    return dict(_launches)
+    with _count_lock:
+        return dict(_launches)
 
 
 def builds_started() -> int:

@@ -42,6 +42,21 @@ def pointwise_mul(a: torch.Tensor, b: torch.Tensor,
                                     b.to(torch.int32).contiguous(), ctx)
 
 
+def fused_rotate_hadamard(polys, tw, f0, f1, ctx: PrimeCtx):
+    """Cached re-rank core for one prime: slot twiddle rotate -> Hadamard
+    against both query components -> slot/chunk mod-sum, NTT domain.
+
+    polys: (B, num_ct, cpt*chunks, N) slot-major gathered cache rows;
+    tw: (cpt, N); f0/f1: (B, chunks, N).  Returns (acc0, acc1), each
+    (B, num_ct, N).  Followed by `ntt_inv` it equals
+    `fused_rotate_hadamard_intt` bit for bit (the staged witness)."""
+    if not on_cuda(polys):
+        return _ref.fused_rotate_hadamard_ref(polys, tw, f0, f1, ctx)
+    return _fused.fused_rerank_cuda(
+        polys.contiguous(), tw.contiguous(), f0.contiguous(),
+        f1.contiguous(), ctx)
+
+
 def fused_rotate_hadamard_intt(polys, tw, f0, f1, ctx: PrimeCtx):
     """Cached re-rank core for one prime with the inverse NTT absorbed:
     slot twiddle rotate -> Hadamard against both query components ->
@@ -63,5 +78,5 @@ def negacyclic_mul(a, b, ctx: PrimeCtx):
     return ntt_inv(pointwise_mul(ntt_fwd(a, ctx), ntt_fwd(b, ctx), ctx), ctx)
 
 
-__all__ = ["ntt_fwd", "ntt_inv", "pointwise_mul",
+__all__ = ["ntt_fwd", "ntt_inv", "pointwise_mul", "fused_rotate_hadamard",
            "fused_rotate_hadamard_intt", "negacyclic_mul"]

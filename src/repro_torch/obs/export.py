@@ -1,0 +1,89 @@
+"""Chrome-trace-format export: load the serving timeline in Perfetto.
+
+`write_chrome_trace` turns a tracer's span snapshot into the Trace Event
+Format JSON that ``ui.perfetto.dev`` (or ``chrome://tracing``) renders
+directly: complete ("X") duration events in microseconds, one thread row
+per span *track* — "engine" for batched stages, "admitter" for the
+sharded cache's background thread, "request-<id>" rows for per-request
+spans — so a batch's lane-parallel structure and the admission copy
+overlapping encrypt are visible on a real timeline.
+
+Only the span schema's whitelisted scalars reach ``args``; the exporter
+adds nothing beyond ids already on the span.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Optional, Sequence
+
+from repro_torch.obs.trace import Span
+
+_PID = 1                         # single-process engine
+
+
+def chrome_trace_events(spans: Sequence[Span]) -> List[dict]:
+    """Spans -> Trace Event Format event list (ts normalized to the
+    earliest span so Perfetto opens at t=0)."""
+    if not spans:
+        return []
+    t0 = min(s.t_start for s in spans)
+    tids: Dict[str, int] = {}
+    events: List[dict] = []
+    for span in spans:
+        tid = tids.get(span.track)
+        if tid is None:
+            # "engine" first keeps the main pipeline as the top row
+            tid = tids[span.track] = 1 if span.track == "engine" \
+                else len(tids) + 1
+            events.append({
+                "name": "thread_name", "ph": "M", "pid": _PID, "tid": tid,
+                "args": {"name": span.track},
+            })
+        args = dict(span.attrs)
+        if span.request_id is not None:
+            args["request_id"] = span.request_id
+        if span.batch_id is not None:
+            args["batch_id"] = span.batch_id
+        events.append({
+            "name": span.name,
+            "ph": "X",
+            "ts": round((span.t_start - t0) * 1e6, 3),
+            "dur": round(span.duration_s * 1e6, 3),
+            "pid": _PID,
+            "tid": tid,
+            "args": args,
+        })
+    return events
+
+
+def write_chrome_trace(path: str, spans: Sequence[Span], *,
+                       stage_summary: Optional[dict] = None) -> int:
+    """Write ``{"traceEvents": [...]}`` JSON to ``path``; returns the
+    number of duration events written.  ``stage_summary`` (if given) is
+    attached under ``"metadata"`` so the profile travels with the
+    timeline."""
+    events = chrome_trace_events(spans)
+    doc: dict = {"traceEvents": events, "displayTimeUnit": "ms"}
+    if stage_summary is not None:
+        doc["metadata"] = {"stage_summary": stage_summary}
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
+    return sum(1 for e in events if e.get("ph") == "X")
+
+
+def load_chrome_trace(path: str) -> dict:
+    """Load + structurally validate a trace file written by
+    `write_chrome_trace`."""
+    with open(path, "r", encoding="utf-8") as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    if not isinstance(events, list):
+        raise ValueError("traceEvents must be a list")
+    for e in events:
+        if e["ph"] == "X" and (e["dur"] < 0 or e["ts"] < 0):
+            raise ValueError(f"negative ts/dur in event {e['name']!r}")
+    return doc
+
+
+__all__ = ["chrome_trace_events", "write_chrome_trace", "load_chrome_trace"]

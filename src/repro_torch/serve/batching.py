@@ -5,7 +5,8 @@ generalization of a single-query op, built so every lane is bit-identical
 to the unbatched call:
 
   * perturb_batch       lane b is perturb(generators[b], E[b], epss[b])
-  * topk_batch          one score-top-k' kernel launch with B queries
+  * topk_batch          one score-top-k' kernel launch with B queries over
+                        a `FlatIndex` or a pinned `CorpusView`
   * encrypted_scores_cached_batch / decrypt_scores_batch
                         the RLWE cloud/user crypto with a leading batch
                         axis (re-exported from `repro_torch.crypto.rlwe`)
@@ -22,8 +23,7 @@ from repro_torch.core import distancedp
 from repro_torch.crypto import backend as crypto_backend
 from repro_torch.crypto import rlwe
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.retrieval.index import FlatIndex
-from repro_torch.retrieval.topk import SearchResult, distributed_topk
+from repro_torch.retrieval.topk import SearchResult, search_view
 
 
 def perturb_batch(generators: Sequence[torch.Generator], E: np.ndarray,
@@ -41,11 +41,15 @@ def perturb_batch(generators: Sequence[torch.Generator], E: np.ndarray,
                         for b, (g, eps) in enumerate(zip(generators, epss))])
 
 
-def topk_batch(index: FlatIndex, perturbed, kprime: int) -> SearchResult:
+def topk_batch(index, perturbed, kprime: int, *,
+               nprobe=None) -> SearchResult:
     """All B perturbed queries through the score-top-k kernel in one
-    launch, on the index's device."""
-    q = torch.as_tensor(perturbed, dtype=torch.float32, device=index.device)
-    return distributed_topk(index, q, kprime)
+    launch, on the device of ``index`` (a `FlatIndex` or an epoch-pinned
+    `CorpusView`).  ``nprobe`` is ignored on a corpus without a cluster
+    map, as in the reference; IVF routing is not ported (it raises)."""
+    q = torch.as_tensor(perturbed, dtype=torch.float32,
+                        device=index.embeddings.device)
+    return search_view(index, q, kprime, nprobe=nprobe)
 
 
 # The batched re-rank crypto lives with the scheme; re-exported here as
@@ -55,6 +59,8 @@ encrypted_scores_batch = rlwe.encrypted_scores_batch
 encrypted_scores_batch_stacked = rlwe.encrypted_scores_batch_stacked
 encrypted_scores_cached_batch = rlwe.encrypted_scores_cached_batch
 decrypt_scores_batch = rlwe.decrypt_scores_batch
+CandidateCacheConfig = rlwe.CandidateCacheConfig
+ShardedCandidateCache = rlwe.ShardedCandidateCache
 get_backend = crypto_backend.get_backend
 UnknownBackend = crypto_backend.UnknownBackend
 
@@ -62,4 +68,5 @@ UnknownBackend = crypto_backend.UnknownBackend
 __all__ = ["perturb_batch", "topk_batch", "pack_candidates_batch",
            "encrypted_scores_batch", "encrypted_scores_batch_stacked",
            "encrypted_scores_cached_batch", "decrypt_scores_batch",
+           "CandidateCacheConfig", "ShardedCandidateCache",
            "get_backend", "UnknownBackend"]

@@ -13,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+import threading
+
 from repro_torch.crypto import modring
+from repro_torch.crypto import rlwe
 from repro_torch.crypto.modring import PrimeCtx
 from repro_torch.kernels import ext
 from repro_torch.kernels.ntt import ops as ntt_ops
@@ -91,6 +94,30 @@ def test_fused_kernel_bit_identical(cuda, bsz, num_ct, cpt, chunks, n):
         assert torch.equal(got[1].cpu(), want[1])
 
 
+@pytest.mark.parametrize("bsz,num_ct,cpt,chunks,n",
+                         [(1, 1, 1, 1, 256), (2, 3, 2, 1, 1024),
+                          (3, 5, 1, 2, 1024), (8, 41, 4, 1, 4096)])
+def test_fused_rerank_kernel_bit_identical(cuda, bsz, num_ct, cpt, chunks, n):
+    """The staged kernel (NTT-domain accumulators out) against its plain
+    version, and staged + standalone inverse NTT against the fused-iNTT
+    kernel (the staged witness of the sharded-cache suite)."""
+    rng = np.random.default_rng(7 * bsz + num_ct)
+    for ctx in _ctxs(n):
+        polys = torch.from_numpy(nref.random_poly(
+            rng, (bsz, num_ct, cpt * chunks, n), ctx.q))
+        tw = torch.from_numpy(nref.random_poly(rng, (cpt, n), ctx.q))
+        f0 = torch.from_numpy(nref.random_poly(rng, (bsz, chunks, n), ctx.q))
+        f1 = torch.from_numpy(nref.random_poly(rng, (bsz, chunks, n), ctx.q))
+        args = [t.to(cuda) for t in (polys, tw, f0, f1)]
+        want = nref.fused_rotate_hadamard_ref(polys, tw, f0, f1, ctx)
+        got = ntt_ops.fused_rotate_hadamard(*args, ctx)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        fused = ntt_ops.fused_rotate_hadamard_intt(*args, ctx)
+        for staged, f in zip(got, fused):
+            assert torch.equal(ntt_ops.ntt_inv(staged, ctx), f)
+
+
 @pytest.mark.parametrize("b,n_rows,n,k,tile", [
     (1, 512, 128, 8, 256), (4, 1000, 384, 16, 256), (8, 300, 64, 300, 512),
     (2, 5000, 768, 161, 2048)])
@@ -117,6 +144,47 @@ def test_score_topk_kernel(cuda, b, n_rows, n, k, tile):
     _assert_ids_equal_up_to_ties(got.indices.cpu(), plain.indices, q, e)
     assert float(got.values[0, 1]) == float(got.values[0, 0])  # the tie
     _assert_exact_ties_by_id(got.values.cpu(), got.indices.cpu())
+
+
+def test_sharded_gather_while_admission_in_flight(cuda):
+    """Sharded gathers on the card equal the dense cache's device gather
+    before, during (the admitter's copy held on its side stream) and after
+    an admission, and across an eviction that frees a shard a gather just
+    read (mirror of the reference's in-flight test)."""
+    params = rlwe.RlweParams(n_poly=1024, chunk=512)
+    rng = np.random.default_rng(5)
+    docs = rng.normal(size=(64, 384)).astype(np.float32)
+    docs /= np.linalg.norm(docs, axis=-1, keepdims=True)
+    dense = rlwe.build_candidate_cache(params, torch.from_numpy(docs).to(cuda))
+    one_shard = dense.nbytes // 4
+    sh = rlwe.shard_candidate_cache(dense, rlwe.CandidateCacheConfig(
+        shard_docs=16, admit_threshold=1, max_resident_bytes=one_shard))
+    started, release = threading.Event(), threading.Event()
+
+    def hook(_s):
+        started.set()
+        assert release.wait(30)
+    sh._admit_hook = hook
+    ids = rng.integers(0, 16, size=(3, 9))             # shard 0 only
+
+    def want(i):
+        return dense.polys[torch.from_numpy(i).to(cuda)]
+
+    assert torch.equal(sh.gather(ids), want(ids))       # enqueues shard 0
+    assert started.wait(30)
+    assert torch.equal(sh.gather(ids), want(ids))       # streams meanwhile
+    release.set()
+    sh.flush()
+    assert sh.resident_shards == (0,)
+    got = sh.gather(ids)                                # device gather
+    sh._admit_hook = None
+    other = ids + 16                                    # shard 1 evicts 0
+    sh.gather(other)
+    sh.flush()
+    assert sh.resident_shards == (1,) and sh.evictions == 1
+    assert torch.equal(got, want(ids))
+    assert torch.equal(sh.gather(other), want(other))
+    torch.cuda.synchronize()
 
 
 def test_launches_are_counted(cuda):

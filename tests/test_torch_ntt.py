@@ -109,6 +109,30 @@ def test_fused_rerank_intt_matches_pallas(bsz, num_ct, cpt, chunks, pi):
         assert torch.equal(g, ops.ntt_inv(a, ctx))
 
 
+@pytest.mark.parametrize("bsz,num_ct,cpt,chunks", [(2, 3, 2, 1), (1, 2, 1, 2)])
+@pytest.mark.parametrize("pi", [0, 2])
+def test_fused_rerank_matches_reference(bsz, num_ct, cpt, chunks, pi):
+    """The staged re-rank (NTT-domain accumulators out) against the
+    reference's `fused_rotate_hadamard` on its Pallas kernel (interpret
+    mode) and on its XLA path; staged + inverse NTT equals the fused-iNTT
+    path (the staged witness of the sharded-cache suite)."""
+    n = 1024
+    q = modring.find_ntt_primes(2 * n, 3)[pi]
+    ctx, jctx = PrimeCtx.build(q, n), jmod.PrimeCtx.build(q, n)
+    polys = _polys(16, (bsz, num_ct, cpt * chunks, n), q)
+    tw, f0, f1 = (_polys(17, (cpt, n), q), _polys(18, (bsz, chunks, n), q),
+                  _polys(19, (bsz, chunks, n), q))
+    args = list(map(torch.from_numpy, (polys, tw, f0, f1)))
+    got = ops.fused_rotate_hadamard(*args, ctx)
+    for use_pallas in (True, False):
+        want = jops.fused_rotate_hadamard(*map(jnp.asarray, (polys, tw, f0, f1)),
+                                          jctx, use_pallas=use_pallas)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for g, f in zip(got, ops.fused_rotate_hadamard_intt(*args, ctx)):
+        assert torch.equal(ops.ntt_inv(g, ctx), f)
+
+
 def test_fused_accumulator_overflow_is_refused():
     n = 1024
     q = modring.find_ntt_primes(2 * n, 1)[0]
@@ -132,3 +156,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tntt.pointwise_mul_cuda(x, x, ctx)
     with pytest.raises(ValueError):
         tfused.fused_rerank_intt_cuda(x[None, None], x, x[None], x[None], ctx)
+    with pytest.raises(ValueError):
+        tfused.fused_rerank_cuda(x[None, None], x, x[None], x[None], ctx)

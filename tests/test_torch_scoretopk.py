@@ -17,10 +17,13 @@ from repro.kernels.scoretopk import ops as jops
 from repro.kernels.scoretopk import ref as jref
 from repro.kernels.scoretopk import scoretopk as jkern
 from repro.retrieval.index import FlatIndex as JFlatIndex
+from repro.retrieval.index import plan_row_slices as j_plan_row_slices
 from repro.retrieval.topk import distributed_topk as j_distributed_topk
+from repro.retrieval.topk import slice_topk as j_slice_topk
 from repro_torch import convert
 from repro_torch.kernels.scoretopk import ops, ref
 from repro_torch.kernels.scoretopk import scoretopk as tkern
+from repro_torch.retrieval import index as tindex
 from repro_torch.retrieval import topk as ttopk
 
 
@@ -142,13 +145,37 @@ def test_distributed_and_slice_topk_match_reference():
     np.testing.assert_allclose(ttopk.distances_from_scores(got.values).numpy(),
                                1.0 - np.asarray(want.values), atol=1e-5)
     # two slices merged by (score desc, id asc) reproduce the full scan
-    parts = [ttopk.slice_topk(tidx.embeddings[a:b], a, torch.from_numpy(q), 20,
+    parts = [ttopk.slice_topk(tidx.slice_view(a, b), torch.from_numpy(q), 20,
                               tile=512) for a, b in ((0, 1700), (1700, 3000))]
+    for part, (a, b) in zip(parts, ((0, 1700), (1700, 3000))):
+        jpart = j_slice_topk(jidx.slice_view(a, b), jnp.asarray(q), 20,
+                             tile=512, use_pallas=False)
+        np.testing.assert_array_equal(part.indices.numpy(),
+                                      np.asarray(jpart.indices))
     v = torch.cat([p.values for p in parts], 1).numpy()
     i = torch.cat([p.indices for p in parts], 1).numpy()
     for row in range(4):
         order = np.lexsort((i[row], -v[row]))[:20]
         np.testing.assert_array_equal(i[row][order], got.indices.numpy()[row])
+
+
+@pytest.mark.parametrize("rows,slices,align", [(3000, 2, 1), (1000, 3, 64),
+                                               (10, 10, 1), (100, 4, 16)])
+def test_plan_row_slices_and_views_match_reference(rows, slices, align):
+    ranges = tindex.plan_row_slices(rows, slices, align=align)
+    assert ranges == j_plan_row_slices(rows, slices, align=align)
+    q, e = _data(9, 2, rows, 16)
+    tidx = tindex.FlatIndex.build(e, device="cpu")
+    view = tidx.corpus_view()
+    assert view.epoch == tidx.epoch == 0 and view.cluster_map is None
+    for a, b in ranges:
+        sl = view.slice_view(a, b)
+        assert (sl.start, sl.stop, sl.num_rows) == (a, b, b - a)
+        assert torch.equal(sl.embeddings, tidx.slice_view(a, b).embeddings)
+    with pytest.raises(ValueError, match="out of range"):
+        tidx.slice_view(0, rows + 1)
+    with pytest.raises(ValueError, match="epoch"):
+        tidx.corpus_view(1)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
