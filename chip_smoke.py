@@ -16,13 +16,16 @@ RLWE ring) it
      checks the staged re-rank kernel followed by the inverse NTT against
      the fused-iNTT kernel (the staged witness), and times kernel, plain
      version and, where one exists, the PyTorch library call computing the
-     same function;
+     same function; the NTT also at one polynomial and at one request's
+     41 rows, score-top-k also at one query (``at_shapes``);
   4. serves 8 requests of 4 tenants one at a time through ``run_remoterag``
      and again as one batch (perturb_batch -> topk_batch ->
      encrypted_scores_cached_batch -> decrypt_scores_batch ->
      finish_request), and checks recall@5 = 1.0 against the plaintext
      top-5, decrypted scores against plaintext inner products (2e-3), and
      batched lanes against the one-at-a-time path (ids, docs, wire bytes);
+     then splits ``topk_batch``'s wall time (query H2D, kernel, merge, a
+     warm repeat) with calls made after the path;
   5. re-views the dense cache as a 16-shard sharded cache (one host-pool
      copy) and checks sharded scores bit-identical to the dense cache's in
      three regimes: stream-only, two pinned shards, async admission;
@@ -192,18 +195,23 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
         return torch.from_numpy(gen.integers(0, q, size=shape).astype(
             np.int32)).to(dev)
 
-    def entry(name, source, replaces, err, kern, plain, nbytes, ops, rate,
-              library=None, **extra):
+    def measure(err, kern, plain, nbytes, ops, rate, library=None,
+                **extra) -> dict:
         """``kern``/``plain``/``library``: zero-argument callables."""
         b_ms, b_by = bound(nbytes, ops, rate)
         lib_ms = (time_ms(torch, library, PLAIN_REPS)
                   if library is not None else None)
+        return dict(max_abs_err=err, ms=time_ms(torch, kern, REPS),
+                    plain_ms=time_ms(torch, plain, PLAIN_REPS),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    call_ms=call_ms(torch, kern, REPS), **extra)
+
+    def entry(name, source, replaces, measured, *others):
+        """One kernel's line: ``measured`` at its main-path shape, then the
+        same measurement at the path's other shapes (``at_shapes``)."""
         out.append(dict(name=name, route="cuda", source=source,
-                        replaces=replaces, launches=0, max_abs_err=err,
-                        ms=time_ms(torch, kern, REPS),
-                        plain_ms=time_ms(torch, plain, PLAIN_REPS),
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                        call_ms=call_ms(torch, kern, REPS), **extra))
+                        replaces=replaces, launches=0, **measured,
+                        **(dict(at_shapes=list(others)) if others else {})))
 
     def compare(name, kern, plain):
         """Run kernel and plain version once; both must agree bit for bit."""
@@ -212,7 +220,9 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
         return err
 
     # NTT forward / inverse at the batched decryption shape (B*num_ct rows),
-    # the largest per-request batch; every prime is checked
+    # the largest per-request batch, and timed also at one request's
+    # decryption (num_ct rows) and at one polynomial (encryption, scoring:
+    # most launches); every prime is checked
     batch_rows = bsz * num_ct
     for inverse, name, rep in ((False, "ntt_fwd",
                                 "src/repro/kernels/ntt/ntt.py:94"),
@@ -220,20 +230,25 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
                                 "src/repro/kernels/ntt/ntt.py:94")):
         ref_fn = nref.ntt_inv_ref if inverse else nref.ntt_fwd_ref
         for c in params.ctxs[1:]:
-            for shape in ((batch_rows, n), (1, n), (4096, n)):
+            for shape in ((batch_rows, n), (1, n), (num_ct, n), (4096, n)):
                 x = residues(shape, c.q)
                 compare(name, lambda: kntt.ntt_cuda(x, c, inverse=inverse),
                         lambda: ref_fn(x, c))
-        x = residues((batch_rows, n), ctx.q)
-        err = compare(name, lambda: kntt.ntt_cuda(x, ctx, inverse=inverse),
-                      lambda: ref_fn(x, ctx))
-        ops = batch_rows * (n // 2) * logn * 3 + (batch_rows * n if inverse
-                                                  else 0)
-        entry(name, "src/repro_torch/csrc/ntt.cu", rep, err,
-              lambda: kntt.ntt_cuda(x, ctx, inverse=inverse),
-              lambda: ref_fn(x, ctx),
-              2 * batch_rows * n * 4 + n * 4, ops, INT32_OPS_S,
-              shape=[batch_rows, n])
+        timed = []
+        for polys_n in (1, num_ct, batch_rows):
+            x = residues((polys_n, n), ctx.q)
+            err = compare(name, lambda: kntt.ntt_cuda(x, ctx,
+                                                      inverse=inverse),
+                          lambda: ref_fn(x, ctx))
+            # the polynomials in and out and one twiddle table; 3 modular
+            # ops a butterfly, and the inverse's N^-1 scaling
+            timed.append(measure(
+                err, lambda: kntt.ntt_cuda(x, ctx, inverse=inverse),
+                lambda: ref_fn(x, ctx), 2 * polys_n * n * 4 + n * 4,
+                polys_n * (n // 2) * logn * 3 + (polys_n * n if inverse
+                                                 else 0),
+                INT32_OPS_S, shape=[polys_n, n]))
+        entry(name, "src/repro_torch/csrc/ntt.cu", rep, timed[-1], *timed[:-1])
 
     # pointwise product at the batched decryption shape
     for c in params.ctxs[1:]:
@@ -245,11 +260,11 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
     err = compare("pointwise_mul", lambda: kntt.pointwise_mul_cuda(a, b, ctx),
                   lambda: nref.pointwise_mul_ref(a, b, ctx))
     entry("pointwise_mul", "src/repro_torch/csrc/ntt.cu",
-          "src/repro/kernels/ntt/ntt.py:120", err,
-          lambda: kntt.pointwise_mul_cuda(a, b, ctx),
-          lambda: nref.pointwise_mul_ref(a, b, ctx),
-          3 * batch_rows * n * 4, batch_rows * n, INT32_OPS_S,
-          shape=[batch_rows, n])
+          "src/repro/kernels/ntt/ntt.py:120", measure(
+              err, lambda: kntt.pointwise_mul_cuda(a, b, ctx),
+              lambda: nref.pointwise_mul_ref(a, b, ctx),
+              3 * batch_rows * n * 4, batch_rows * n, INT32_OPS_S,
+              shape=[batch_rows, n]))
 
     # fused rotate / Hadamard / accumulate / inverse NTT at (B, num_ct, rows, N)
     for c in params.ctxs[::-1]:           # the first prime's inputs last
@@ -267,10 +282,12 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
                   + 2 * cells * n)
     ops = cells * n * (rows * 5 + 2) + 2 * cells * ((n // 2) * logn * 3 + n)
     entry("fused_rerank_intt", "src/repro_torch/csrc/fused.cu",
-          "src/repro/kernels/ntt/fused.py:132", err,
-          lambda: kfused.fused_rerank_intt_cuda(polys, tw, f0, f1, ctx),
-          lambda: nref.fused_rotate_hadamard_intt_ref(polys, tw, f0, f1, ctx),
-          nbytes, ops, INT32_OPS_S, shape=[bsz, num_ct, rows, n])
+          "src/repro/kernels/ntt/fused.py:132", measure(
+              err, lambda: kfused.fused_rerank_intt_cuda(polys, tw, f0, f1,
+                                                         ctx),
+              lambda: nref.fused_rotate_hadamard_intt_ref(polys, tw, f0, f1,
+                                                          ctx),
+              nbytes, ops, INT32_OPS_S, shape=[bsz, num_ct, rows, n]))
 
     # staged re-rank (NTT-domain accumulators out) at the same shape: bit
     # identical to its plain version, and staged + standalone inverse NTT
@@ -294,52 +311,60 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
     nbytes = 4 * (polys.numel() + tw.numel() + f0.numel() + f1.numel()
                   + 2 * cells * n)
     entry("fused_rerank", "src/repro_torch/csrc/fused.cu",
-          "src/repro/kernels/ntt/fused.py:99", err,
-          lambda: kfused.fused_rerank_cuda(polys, tw, f0, f1, ctx),
-          lambda: nref.fused_rotate_hadamard_ref(polys, tw, f0, f1, ctx),
-          nbytes, cells * n * (rows * 5 + 2), INT32_OPS_S,
-          shape=[bsz, num_ct, rows, n], staged_witness_max_abs_err=witness,
-          on_serving_path=False)
+          "src/repro/kernels/ntt/fused.py:99", measure(
+              err, lambda: kfused.fused_rerank_cuda(polys, tw, f0, f1, ctx),
+              lambda: nref.fused_rotate_hadamard_ref(polys, tw, f0, f1, ctx),
+              nbytes, cells * n * (rows * 5 + 2), INT32_OPS_S,
+              shape=[bsz, num_ct, rows, n],
+              staged_witness_max_abs_err=witness, on_serving_path=False))
 
-    # score + per-tile top-k over the whole corpus with the batch's queries
-    q = torch.from_numpy(np.asarray(queries, np.float32)).to(dev)
+    # score + per-tile top-k over the whole corpus with the batch's queries,
+    # and with one query (one request at a time and the sequential engine:
+    # most launches)
     emb = index.embeddings
     n_rows, dim = emb.shape
     tile, kk = 2048, min(plan.kprime, 2048, n_rows)
-    kv, ki = kscore.score_topk_cuda(q, emb, kk=kk, tile=tile)
-    pv, pi = sref.tile_topk_ref(q, emb, kk, tile)
-    fin = torch.isfinite(pv)
-    check(torch.equal(fin, torch.isfinite(kv)), "score_topk -inf pattern")
-    err = (kv[fin] - pv[fin]).abs()
-    check(bool((err <= 1e-5 * pv[fin].abs() + 1e-30).all()),
-          f"score_topk values off by {float(err.max())}")
-    mism = (ki != pi) & fin
-    if bool(mism.any()):
-        # a swapped id must score, under the plain version, within the
-        # tolerance of the plain value at that position (a tie)
-        t_idx, b_idx, _ = torch.nonzero(mism, as_tuple=True)
-        got_ids = ki[mism].long()
-        rescored = (q[b_idx].double() * emb[got_ids].double()).sum(-1)
-        ok = (rescored - pv[mism].double()).abs() <= 1e-5 * pv[mism].abs()
-        check(bool(ok.all()), "score_topk ids differ beyond score ties")
     num_tiles = -(-n_rows // tile)
     pad = num_tiles * tile - n_rows
+    timed = []
+    for b in (1, bsz):
+        q = torch.from_numpy(np.asarray(queries[:b], np.float32)).to(dev)
+        kv, ki = kscore.score_topk_cuda(q, emb, kk=kk, tile=tile)
+        pv, pi = sref.tile_topk_ref(q, emb, kk, tile)
+        fin = torch.isfinite(pv)
+        check(torch.equal(fin, torch.isfinite(kv)), "score_topk -inf pattern")
+        err = (kv[fin] - pv[fin]).abs()
+        check(bool((err <= 1e-5 * pv[fin].abs() + 1e-30).all()),
+              f"score_topk values off by {float(err.max())}")
+        mism = (ki != pi) & fin
+        if bool(mism.any()):
+            # a swapped id must score, under the plain version, within the
+            # tolerance of the plain value at that position (a tie)
+            t_idx, b_idx, _ = torch.nonzero(mism, as_tuple=True)
+            got_ids = ki[mism].long()
+            rescored = (q[b_idx].double() * emb[got_ids].double()).sum(-1)
+            ok = (rescored - pv[mism].double()).abs() <= 1e-5 * pv[mism].abs()
+            check(bool(ok.all()), "score_topk ids differ beyond score ties")
 
-    def library():
-        s = torch.nn.functional.pad(torch.matmul(q, emb.T), (0, pad),
-                                    value=-torch.inf)
-        return torch.topk(s.view(bsz, num_tiles, tile), kk, dim=-1)
+        def library(q=q, b=b):
+            s = torch.nn.functional.pad(torch.matmul(q, emb.T), (0, pad),
+                                        value=-torch.inf)
+            return torch.topk(s.view(b, num_tiles, tile), kk, dim=-1)
 
-    nbytes = 4 * (n_rows * dim + bsz * dim + 2 * num_tiles * bsz * kk)
-    ops = 2 * bsz * n_rows * dim + num_tiles * bsz * kk * tile
+        # the function's work, whatever computes it: each corpus and query
+        # byte read once, the lists written once; 2*B*N*n flops and one
+        # compare per score
+        nbytes = 4 * (n_rows * dim + b * dim + 2 * num_tiles * b * kk)
+        ops = 2 * b * n_rows * dim + b * n_rows
+        timed.append(measure(
+            float(err.max()),
+            lambda q=q: kscore.score_topk_cuda(q, emb, kk=kk, tile=tile),
+            lambda q=q: sref.tile_topk_ref(q, emb, kk, tile),
+            nbytes, ops, FP32_OPS_S, library=library,
+            id_mismatches=int(mism.sum()), shape=[b, n_rows, dim, kk]))
     entry("score_topk", "src/repro_torch/csrc/scoretopk.cu",
-          "src/repro/kernels/scoretopk/scoretopk.py:61",
-          float(err.max()),
-          lambda: kscore.score_topk_cuda(q, emb, kk=kk, tile=tile),
-          lambda: sref.tile_topk_ref(q, emb, kk, tile),
-          nbytes, ops, FP32_OPS_S, library=library,
-          id_mismatches=int(mism.sum()),
-          shape=[bsz, n_rows, dim, kk])
+          "src/repro/kernels/scoretopk/scoretopk.py:61", timed[-1],
+          *timed[:-1])
     return out
 
 
@@ -435,6 +460,8 @@ def serve_phase(torch, np, args, index, cloud, params, plan,
     prof.__exit__(None, None, None)
     batch_launches = ext.launch_counts()
     busy, busy_ms = device_busy(torch, prof)
+    topk_split = topk_batch_split(torch, index, pert, plan.kprime)
+    topk_split["first_ms"] = stages["topk_batch"]
 
     # -- checks -------------------------------------------------------
     q = torch.from_numpy(np.asarray(queries, np.float32)).cuda()
@@ -472,8 +499,38 @@ def serve_phase(torch, np, args, index, cloud, params, plan,
                                          else 1.0 - busy_ms / batch_wall_ms),
                 batch_device_ms_by_kernel=dict(sorted(
                     busy.items(), key=lambda kv: -kv[1])[:12]),
+                topk_batch_split=topk_split,
                 total_bytes=[b[2].total_bytes for b in batch],
                 launches_seq=seq_launches, launches_batch=batch_launches)
+
+
+def topk_batch_split(torch, index, pert, kprime: int) -> dict:
+    """Wall ms of ``topk_batch``'s parts, each called again after the
+    batch's run (so their launches are not the path's): the queries' H2D
+    copy, the kernel, the cross-tile merge (a stable sort of the
+    (B, num_tiles * kk) candidates), then the whole stage again, warm."""
+    from repro_torch.kernels.scoretopk import ref as sref
+    from repro_torch.kernels.scoretopk import scoretopk as kscore
+    from repro_torch.serve import batching
+
+    emb = index.embeddings
+    tile = min(2048, emb.shape[0])
+    kk = min(kprime, tile)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    q, h2d = wall(lambda: torch.as_tensor(pert, dtype=torch.float32,
+                                          device=emb.device))
+    (vals, ids), kern = wall(lambda: kscore.score_topk_cuda(q, emb, kk=kk,
+                                                            tile=tile))
+    _, merge = wall(lambda: sref.merge_tiles_ref(vals, ids, kprime))
+    _, warm = wall(lambda: batching.topk_batch(index, pert, kprime))
+    return dict(h2d_ms=h2d, kernel_ms=kern, merge_ms=merge, warm_ms=warm)
 
 
 def path_launches(name: str, counts: dict) -> dict:

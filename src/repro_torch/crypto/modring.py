@@ -5,7 +5,9 @@ tables) is the reference's, copied.  The device primitives work on int64
 tensors: residues are canonical in [0, q) with q < 2^20, so a product is
 below 2^40 and ``%`` gives the same bits as the reference's int32 limb
 split (which existed only to fit TPU int32 lanes).  The CUDA kernels use a
-64-bit Barrett reduction with ``barrett64 = floor(2^64 / q)`` instead.
+64-bit Barrett reduction with ``barrett64 = floor(2^64 / q)`` (pointwise
+and fused re-rank kernels) or, in the standalone NTT, Shoup products with a
+precomputed quotient ``floor(w * 2^32 / q)`` for every twiddle ``w``.
 """
 
 from __future__ import annotations
@@ -123,6 +125,18 @@ class PrimeCtx:
         """floor(2^64 / q): the CUDA kernels' Barrett constant."""
         return (1 << 64) // self.q
 
+    def shoup(self, w: int) -> int:
+        """floor(w * 2^32 / q): the Shoup quotient of a constant w in [0, q)."""
+        return (int(w) << 32) // self.q
+
+    @property
+    def inv_tail(self) -> tuple:
+        """Constants of the inverse NTT's last stage with N^{-1} folded in:
+        (N^{-1}, its Shoup quotient, psi^{-1} * N^{-1} mod q, its quotient),
+        where psi^{-1} = ipsi_table[1] is that stage's only twiddle."""
+        w = int(self.ipsi_table[1]) * self.n_inv % self.q
+        return self.n_inv, self.shoup(self.n_inv), w, self.shoup(w)
+
     @classmethod
     @functools.lru_cache(maxsize=None)
     def build(cls, q: int, n: int) -> "PrimeCtx":
@@ -141,11 +155,18 @@ class PrimeCtx:
         )
 
     def table(self, kind: str, device: torch.device) -> torch.Tensor:
-        """``kind`` in {"psi", "ipsi"}: the int32 table on ``device``."""
+        """``kind`` in {"psi", "ipsi", "psi_shoup", "ipsi_shoup"}: the int32
+        table on ``device``.  The ``*_shoup`` tables hold the Shoup quotient
+        of each twiddle (`shoup`, computed with Python ints), a uint32 stored
+        in the int32's bits."""
         key = (kind, str(device))
         t = self._tables.get(key)
         if t is None:
-            src = self.psi_table if kind == "psi" else self.ipsi_table
+            base, _, shoup = kind.partition("_")
+            src = self.psi_table if base == "psi" else self.ipsi_table
+            if shoup:
+                src = np.array([self.shoup(w) for w in src.tolist()],
+                               dtype=np.uint32).view(np.int32)
             t = self._tables[key] = torch.from_numpy(src).to(device)
         return t
 

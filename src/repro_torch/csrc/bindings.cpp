@@ -13,12 +13,13 @@
 #include <tuple>
 
 extern "C" {
-int ntt_fwd_launch(const void* x, void* out, const void* psi, int batch,
-                   int n, uint32_t q, uint64_t m, uint32_t n_inv,
+int ntt_fwd_launch(const void* x, void* out, const void* psi,
+                   const void* psi_shoup, int64_t batch, int n, uint32_t q,
                    void* stream);
-int ntt_inv_launch(const void* x, void* out, const void* ipsi, int batch,
-                   int n, uint32_t q, uint64_t m, uint32_t n_inv,
-                   void* stream);
+int ntt_inv_launch(const void* x, void* out, const void* ipsi,
+                   const void* ipsi_shoup, int64_t batch, int n, uint32_t q,
+                   uint32_t n_inv, uint32_t n_inv_s, uint32_t tail_w,
+                   uint32_t tail_ws, void* stream);
 int pointwise_mul_launch(const void* a, const void* b, void* out,
                          int64_t count, uint32_t q, uint64_t m, void* stream);
 int fused_rerank_intt_launch(const void* polys, const void* tw,
@@ -33,6 +34,7 @@ int fused_rerank_launch(const void* polys, const void* tw, const void* f0,
 int score_topk_launch(const void* queries, const void* corpus, void* vals,
                       void* idx, int batch, int n_rows, int dim, int kk,
                       int tile, void* stream);
+size_t score_topk_smem(int g, int dim, int kk, int tile);
 }
 
 namespace {
@@ -69,23 +71,34 @@ void check_launch(int err, const char* fn) {
 
 void* stream() { return c10::cuda::getCurrentCUDAStream().stream(); }
 
-Tensor ntt(const Tensor& x, const Tensor& table, bool inverse, int64_t q,
-           int64_t m, int64_t n_inv) {
+// table/shoup: the twiddles and their Shoup quotients; n_inv, tail_w and
+// their quotients fold N^-1 into the inverse's last stage (unused forward)
+Tensor ntt(const Tensor& x, const Tensor& table, const Tensor& shoup,
+           bool inverse, int64_t q, int64_t n_inv, int64_t n_inv_s,
+           int64_t tail_w, int64_t tail_ws) {
   check_tensor(x, "x", torch::kInt32, 2);
   check_tensor(table, "table", torch::kInt32, 1);
+  check_tensor(shoup, "shoup", torch::kInt32, 1);
   const int64_t n = x.size(1);
   check_ring(n, q);
-  TORCH_CHECK_VALUE(table.size(0) == n, "table has ", table.size(0),
-                    " entries, N is ", n);
-  TORCH_CHECK_VALUE(x.size(0) < INT32_MAX, "batch too large");
+  TORCH_CHECK_VALUE(table.size(0) == n && shoup.size(0) == n, "tables have ",
+                    table.size(0), " and ", shoup.size(0), " entries, N is ",
+                    n);
   const c10::cuda::CUDAGuard guard(x.device());
   Tensor out = torch::empty_like(x);
-  const auto launch = inverse ? ntt_inv_launch : ntt_fwd_launch;
-  check_launch(launch(x.data_ptr(), out.data_ptr(), table.data_ptr(),
-                      static_cast<int>(x.size(0)), static_cast<int>(n),
-                      static_cast<uint32_t>(q), static_cast<uint64_t>(m),
-                      static_cast<uint32_t>(n_inv), stream()),
-               inverse ? "ntt_inv_launch" : "ntt_fwd_launch");
+  const auto b = x.size(0);
+  const auto nn = static_cast<int>(n);
+  const auto qq = static_cast<uint32_t>(q);
+  const int err =
+      inverse ? ntt_inv_launch(x.data_ptr(), out.data_ptr(), table.data_ptr(),
+                               shoup.data_ptr(), b, nn, qq,
+                               static_cast<uint32_t>(n_inv),
+                               static_cast<uint32_t>(n_inv_s),
+                               static_cast<uint32_t>(tail_w),
+                               static_cast<uint32_t>(tail_ws), stream())
+              : ntt_fwd_launch(x.data_ptr(), out.data_ptr(), table.data_ptr(),
+                               shoup.data_ptr(), b, nn, qq, stream());
+  check_launch(err, inverse ? "ntt_inv_launch" : "ntt_fwd_launch");
   return out;
 }
 
@@ -187,8 +200,12 @@ std::tuple<Tensor, Tensor> score_topk(const Tensor& queries,
   TORCH_CHECK_VALUE(1 <= kk && kk <= tile && n_rows < INT32_MAX,
                     "need 1 <= kk <= tile and N < 2^31, got kk=", kk,
                     ", tile=", tile, ", N=", n_rows);
-  TORCH_CHECK_VALUE((dim + tile) * 4 <= 227 * 1024, "dim ", dim, " + tile ",
-                    tile, " floats exceed shared memory");
+  TORCH_CHECK_VALUE(b < INT32_MAX && dim < INT32_MAX && tile < INT32_MAX &&
+                        score_topk_smem(1, static_cast<int>(dim),
+                                        static_cast<int>(kk),
+                                        static_cast<int>(tile)) <= 227 * 1024,
+                    "dim ", dim, ", tile ", tile, " and kk ", kk,
+                    " exceed a block's shared memory");
   const c10::cuda::CUDAGuard guard(queries.device());
   const int64_t num_tiles = (n_rows + tile - 1) / tile;
   Tensor vals = torch::empty({num_tiles, b, kk}, queries.options());

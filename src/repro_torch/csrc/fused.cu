@@ -16,10 +16,11 @@
 // summed raw in 32 bits (the binding checks rows * (q - 1) < 2^31, as the
 // reference asserts) and reduced once.  Both kernels run this sum through
 // one device function, `accumulate`; the intt kernel then runs the (2, N)
-// accumulator pair through inv_network from modarith.cuh — the same device
-// function as the standalone inverse NTT — so the staged pair (this file's
+// accumulator pair through inv_network from modarith.cuh.  The standalone
+// inverse NTT (ntt.cu) runs another network (lazy Shoup butterflies), but
+// both end in canonical residues, so the staged pair (this file's
 // fused_rerank_kernel, then the standalone inverse) and the fused kernel
-// agree by construction, as `_accumulate` guarantees in the reference.
+// agree bit for bit, as `_accumulate` guarantees in the reference.
 //
 // Bound on an H100: bytes.  Each block reads its cpt*chunks cache rows,
 // the twiddles and both query NTTs and writes two rows.  In the intt

@@ -20,9 +20,10 @@ def ntt_cuda(x: torch.Tensor, ctx: PrimeCtx, *,
     """Batched (inverse) negacyclic NTT of contiguous (batch, N) int32 in
     [0, q)."""
     ext.require_cuda(x)
-    table = ctx.table("ipsi" if inverse else "psi", x.device)
-    out = ext.extension().ntt(x, table, inverse, ctx.q, ctx.barrett64,
-                              ctx.n_inv)
+    kind = "ipsi" if inverse else "psi"
+    out = ext.extension().ntt(x, ctx.table(kind, x.device),
+                              ctx.table(kind + "_shoup", x.device), inverse,
+                              ctx.q, *ctx.inv_tail)
     ext.count_launch("ntt_inv" if inverse else "ntt_fwd")
     return out
 

@@ -55,10 +55,13 @@ def _assert_exact_ties_by_id(v, i):
 
 
 def _ctxs(n):
-    return [PrimeCtx.build(q, n) for q in modring.find_ntt_primes(2 * n, 3)]
+    # three primes below 2^20; at N = 16384 only two lie above 2^19
+    return [PrimeCtx.build(q, n)
+            for q in modring.find_ntt_primes(2 * n, 3, lo=1 << 16)]
 
 
-@pytest.mark.parametrize("n,batch", [(256, 1), (1024, 8), (4096, 5)])
+@pytest.mark.parametrize("n,batch", [(256, 1), (1024, 8), (4096, 5)] + [
+    (n, batch) for n in (256, 1024, 4096, 16384) for batch in (1, 41, 328)])
 def test_ntt_kernels_bit_identical(cuda, n, batch):
     rng = np.random.default_rng(n + batch)
     for ctx in _ctxs(n):
@@ -118,31 +121,73 @@ def test_fused_rerank_kernel_bit_identical(cuda, bsz, num_ct, cpt, chunks, n):
             assert torch.equal(ntt_ops.ntt_inv(staged, ctx), f)
 
 
-@pytest.mark.parametrize("b,n_rows,n,k,tile", [
-    (1, 512, 128, 8, 256), (4, 1000, 384, 16, 256), (8, 300, 64, 300, 512),
-    (2, 5000, 768, 161, 2048)])
-def test_score_topk_kernel(cuda, b, n_rows, n, k, tile):
+def _tie_rows(rng, e, q, kk, tile):
+    """300 rows of the first tile made copies of the row that ranks about
+    50 places above the kk-th for query 0: exact ties straddling the kk-th
+    place (identical rows score identically in the kernel)."""
+    s = e[:tile] @ q[0]
+    src = int(np.argsort(-s, kind="stable")[max(kk - 50, 0)])
+    rows = rng.choice(np.delete(np.arange(tile), src), 300, replace=False)
+    e[rows] = e[src]
+    return np.sort(np.append(rows, src))
+
+
+def _zero_rows(rng, q, e):
+    """Queries zero in the second half of the dims; 20 rows above them, 300
+    rows zero in the first half (each product +-0.0, so both the kernel and
+    the plain version score them exactly +-0.0, equal), the rest below."""
+    h = q.shape[1] // 2
+    q[:, :h] = np.abs(q[:, :h])
+    q[:, h:] = 0
+    e[:, :h] = -np.abs(e[:, :h])
+    e[:20, :h] *= -1
+    zero = 20 + rng.choice(e.shape[0] - 20, 300, replace=False)
+    e[zero, :h] = 0
+    e[zero[::2], h:] *= -1
+
+
+@pytest.mark.parametrize("b,n_rows,n,k,tile,special", [
+    (1, 512, 128, 8, 256, None), (4, 1000, 384, 16, 256, None),
+    (8, 300, 64, 300, 512, None), (2, 5000, 768, 161, 2048, None),
+    (13, 5000, 768, 161, 2048, None),      # B > 8: two query groups
+    (8, 3000, 768, 1, 2048, None),         # kk = 1
+    (1, 4096, 768, 2048, 2048, None),      # kk = tile
+    (8, 4500, 768, 161, 2048, "ties"), (1, 4500, 768, 161, 2048, "ties"),
+    (8, 1000, 128, 64, 512, "zeros"),      # +-0.0 across the kk-th place
+    (3, 2100, 128, 161, 2048, None),       # last tile: 52 rows < kk
+    (5, 777, 130, 16, 256, None)])         # dim % 4 != 0: 4-byte loads
+def test_score_topk_kernel(cuda, b, n_rows, n, k, tile, special):
     rng = np.random.default_rng(n_rows)
     q = rng.normal(size=(b, n)).astype(np.float32)
     e = rng.normal(size=(n_rows, n)).astype(np.float32)
+    if special == "zeros":
+        _zero_rows(rng, q, e)
     q /= np.linalg.norm(q, axis=-1, keepdims=True)      # unit-norm, as the
     e /= np.linalg.norm(e, axis=-1, keepdims=True)      # index stores them
+    kk, t = min(k, tile, n_rows), min(tile, n_rows)
+    tied = _tie_rows(rng, e, q, kk, t) if special == "ties" else None
     best = int(np.argmax(e @ q[0]))
     e[n_rows // 2] = e[best]                    # an exact tie in the top k
     e[n_rows - 1] = e[best]
     q, e = torch.from_numpy(q), torch.from_numpy(e)
-    kk, t = min(k, tile, n_rows), min(tile, n_rows)
     kv, ki = kscore.score_topk_cuda(q.to(cuda), e.to(cuda), kk=kk, tile=t)
     pv, pi = sref.tile_topk_ref(q, e, kk, t)
     torch.testing.assert_close(kv.cpu(), pv, rtol=1e-5, atol=1e-6)
     _assert_ids_equal_up_to_ties(ki.cpu(), pi, q, e)
     _assert_exact_ties_by_id(kv.cpu(), ki.cpu())
+    if special == "zeros":                      # every tie is exact
+        assert torch.equal(ki.cpu(), pi)
+    if tied is not None:                        # the lowest tied rows win
+        for row in ki[0].cpu().numpy():
+            got = np.intersect1d(row, tied)
+            np.testing.assert_array_equal(got, tied[:len(got)])
     got = sops.topk_scores(q.to(cuda), e.to(cuda), k, tile=tile)
     plain = sops.topk_scores(q, e, k, tile=tile)
     torch.testing.assert_close(got.values.cpu(), plain.values, rtol=1e-5,
                                atol=1e-6)
     _assert_ids_equal_up_to_ties(got.indices.cpu(), plain.indices, q, e)
-    assert float(got.values[0, 1]) == float(got.values[0, 0])  # the tie
+    if k > 1:
+        assert float(got.values[0, 1]) == float(got.values[0, 0])  # the tie
     _assert_exact_ties_by_id(got.values.cpu(), got.indices.cpu())
 
 

@@ -39,6 +39,33 @@ def test_prime_tables_match_reference(n):
         assert t.barrett64 == (1 << 64) // q
 
 
+@pytest.mark.parametrize("n", [256, 1024, 4096])
+def test_shoup_tables_match_python_ints(n):
+    """The NTT kernel's Shoup quotients floor(w * 2^32 / q), one per
+    twiddle (uint32 in int32 bits), and the inverse's last stage with N^-1
+    folded in: (N^-1, psi^-1 * N^-1) and their quotients."""
+    for q in modring.find_ntt_primes(2 * n, 3):
+        ctx = PrimeCtx.build(q, n)
+        for kind in ("psi", "ipsi"):
+            w = ctx.table(kind, torch.device("cpu")).numpy()
+            got = ctx.table(kind + "_shoup", torch.device("cpu"))
+            assert got.dtype == torch.int32 and got.shape == (n,)
+            want = [(int(x) << 32) // q for x in w]
+            assert got.numpy().view(np.uint32).tolist() == want
+        n_inv, n_inv_s, w, ws = ctx.inv_tail
+        assert n_inv * n % q == 1 and n_inv_s == (n_inv << 32) // q
+        ipsi = pow(int(ctx.psi_table[1]), -1, q)
+        assert int(ctx.ipsi_table[1]) == ipsi
+        assert w == ipsi * n_inv % q and ws == (w << 32) // q
+        # a Shoup product a * w - umulhi(a, ws) * q in 32-bit arithmetic is
+        # a * w mod q or that plus q, for any 32-bit a (the kernel's lazy
+        # values stay below 4q)
+        a = np.random.default_rng(n).integers(0, 4 * q, 1000).astype(np.uint64)
+        for c, cs in ((n_inv, n_inv_s), (w, ws)):
+            r = (a * c - ((a * cs) >> 32) * q) % (1 << 32)
+            assert bool(np.all(r < 2 * q)) and bool(np.all(r % q == a * c % q))
+
+
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("n,q", CASES)
 def test_ntt_matches_pallas_bit_for_bit(n, q, batch):
