@@ -11,13 +11,16 @@ RLWE ring) it
      extension, ``torch.utils.cpp_extension.load``);
   2. builds the index and its dense NTT-domain candidate cache on the card;
   3. holds each kernel against its plain PyTorch version on the card at the
-     path's shapes (integer kernels bit-identical; score-top-k values within
-     1e-5 relative and ids equal up to scores tied within that tolerance),
-     checks the staged re-rank kernel followed by the inverse NTT against
-     the fused-iNTT kernel (the staged witness), and times kernel, plain
-     version and, where one exists, the PyTorch library call computing the
-     same function; the NTT also at one polynomial and at one request's
-     41 rows, score-top-k also at one query (``at_shapes``);
+     path's shapes (integer kernels bit-identical on every prime; score-top-k
+     values within 1e-5 relative and ids equal up to scores tied within that
+     tolerance), checks the staged re-rank kernel followed by the inverse
+     NTT against the fused-iNTT kernel (the staged witness), and times
+     kernel (in bursts of back-to-back calls), plain version and, where one
+     exists, the PyTorch library call computing the same function; the NTT
+     also at one polynomial, the batch's 8 and one request's 41 rows, the
+     pointwise product at 1 and 41 rows, the fused re-rank at one request,
+     score-top-k at one query (``at_shapes``); the fused re-rank reads gathered rows in
+     place, as the serving path hands them over;
   4. serves 8 requests of 4 tenants one at a time through ``run_remoterag``
      and again as one batch (perturb_batch -> topk_batch ->
      encrypted_scores_cached_batch -> decrypt_scores_batch ->
@@ -36,7 +39,9 @@ RLWE ring) it
 
 Each path (one-at-a-time, batch, each engine run) runs with the launch
 counts set to 0 just before it and read just after, and every kernel of
-the path must have launched.  Every phase prints one JSON line with its
+the path must have launched; the kernels line gives each kernel's launches
+over the paths, also by shape, and launches x (time - bound) per timed
+shape.  Every phase prints one JSON line with its
 wall time; the last line is the device summary.  Any failed check raises,
 so the script exits non-zero and prints no result.  It needs a CUDA device
 and the repository's ``src/`` beside it.
@@ -45,6 +50,8 @@ and the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import argparse
+import collections
+import itertools
 import json
 import math
 import resource
@@ -64,7 +71,8 @@ FP32_OPS_S = 67e12
 INT32_OPS_S = 132 * 64 * 1.98e9
 
 REQUESTS, TENANTS = 8, 4     # requests served per path, tenants (keys)
-REPS, PLAIN_REPS = 50, 5     # timed calls per kernel / per plain version
+REPS, PLAIN_REPS = 20, 5     # timed samples per kernel / per plain version
+BURST = 20                   # back-to-back kernel calls in one timed sample
 NUM_SHARDS, BUDGET_SHARDS = 16, 4   # sharded cache: shards, engine budget
 # kernels of the serving path (fused_rerank is the staged witness only)
 PATH_KERNELS = ("ntt_fwd", "ntt_inv", "pointwise_mul", "fused_rerank_intt",
@@ -111,20 +119,23 @@ def spin_cycles_per_ms(torch) -> float:
     return _spin_cycles_per_ms[0]
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    """Median device time of one call of ``fn`` over ``reps`` calls.
+def time_ms(torch, fn, reps: int, burst: int = 1) -> float:
+    """Median device time of one call of ``fn`` over ``reps`` samples.
 
-    Each call runs between two CUDA events enqueued behind a spin kernel
-    longer than the host takes to enqueue the call, so the device runs the
-    call's launches back to back and no host launch gap lies inside the
-    interval.  A call counts only if the device was still spinning when the
-    host had enqueued it (its first event not yet reached); one that missed
-    is timed again behind a longer spin, and five misses raise, so the
-    result is device time or nothing."""
+    A sample is ``burst`` calls back to back between two CUDA events
+    enqueued behind a spin kernel longer than the host takes to enqueue
+    them, divided by ``burst``: the device runs the launches back to back,
+    no host launch gap lies inside the interval, and the events' own
+    overhead (~4 us a pair on the H100) is shared by ``burst`` calls.  A
+    sample counts only if the device was still spinning when the host had
+    enqueued it (its first event not yet reached); one that missed is
+    timed again behind a longer spin, and five misses raise, so the result
+    is device time or nothing."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    for _ in range(burst):
+        fn()
     torch.cuda.synchronize()
     spin_ms = 2 * (time.perf_counter() - t0) * 1e3 + 1
     times, misses = [], 0
@@ -133,12 +144,13 @@ def time_ms(torch, fn, reps: int) -> float:
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms(torch)))
         a.record()
-        fn()
+        for _ in range(burst):
+            fn()
         b.record()
         queued = not a.query()
         b.synchronize()
         if queued:
-            times.append(a.elapsed_time(b))
+            times.append(a.elapsed_time(b) / burst)
             continue
         misses += 1
         check(misses < 5, "the device reached a timed call before the host "
@@ -172,7 +184,10 @@ def int_err(got, want) -> int:
 
 def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
     """Each kernel against its plain version at the main path's shapes; the
-    inputs each kernel is timed on are the ones its error is read from."""
+    inputs each kernel is timed on are the ones its error is read from.
+    Kernels are timed in bursts of BURST back-to-back calls (`time_ms`),
+    plain versions and library calls one call at a time."""
+    from repro_torch.crypto import modring
     from repro_torch.kernels.ntt import fused as kfused
     from repro_torch.kernels.ntt import ntt as kntt
     from repro_torch.kernels.ntt import ref as nref
@@ -201,7 +216,7 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
         b_ms, b_by = bound(nbytes, ops, rate)
         lib_ms = (time_ms(torch, library, PLAIN_REPS)
                   if library is not None else None)
-        return dict(max_abs_err=err, ms=time_ms(torch, kern, REPS),
+        return dict(max_abs_err=err, ms=time_ms(torch, kern, REPS, BURST),
                     plain_ms=time_ms(torch, plain, PLAIN_REPS),
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                     call_ms=call_ms(torch, kern, REPS), **extra)
@@ -221,7 +236,8 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
 
     # NTT forward / inverse at the batched decryption shape (B*num_ct rows),
     # the largest per-request batch, and timed also at one request's
-    # decryption (num_ct rows) and at one polynomial (encryption, scoring:
+    # decryption (num_ct rows), at the batch's query rows (B, the forward
+    # NTT's scoring launches) and at one polynomial (encryption, scoring:
     # most launches); every prime is checked
     batch_rows = bsz * num_ct
     for inverse, name, rep in ((False, "ntt_fwd",
@@ -235,7 +251,7 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
                 compare(name, lambda: kntt.ntt_cuda(x, c, inverse=inverse),
                         lambda: ref_fn(x, c))
         timed = []
-        for polys_n in (1, num_ct, batch_rows):
+        for polys_n in (1, bsz, num_ct, batch_rows):
             x = residues((polys_n, n), ctx.q)
             err = compare(name, lambda: kntt.ntt_cuda(x, ctx,
                                                       inverse=inverse),
@@ -250,69 +266,101 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
                 INT32_OPS_S, shape=[polys_n, n]))
         entry(name, "src/repro_torch/csrc/ntt.cu", rep, timed[-1], *timed[:-1])
 
-    # pointwise product at the batched decryption shape
-    for c in params.ctxs[1:]:
-        aa, bb = residues((batch_rows, n), c.q), residues((batch_rows, n), c.q)
-        compare("pointwise_mul", lambda: kntt.pointwise_mul_cuda(aa, bb, c),
-                lambda: nref.pointwise_mul_ref(aa, bb, c))
-    a = residues((batch_rows, n), ctx.q)
-    b = residues((batch_rows, n), ctx.q)
-    err = compare("pointwise_mul", lambda: kntt.pointwise_mul_cuda(a, b, ctx),
-                  lambda: nref.pointwise_mul_ref(a, b, ctx))
+    # pointwise product at the batched decryption shape, at one request's
+    # (num_ct rows) and at one polynomial (encryption)
+    timed = []
+    for polys_n in (1, num_ct, batch_rows):
+        for c in params.ctxs[1:]:
+            aa, bb = residues((polys_n, n), c.q), residues((polys_n, n), c.q)
+            compare("pointwise_mul",
+                    lambda: kntt.pointwise_mul_cuda(aa, bb, c),
+                    lambda: nref.pointwise_mul_ref(aa, bb, c))
+        a = residues((polys_n, n), ctx.q)
+        b = residues((polys_n, n), ctx.q)
+        err = compare("pointwise_mul",
+                      lambda: kntt.pointwise_mul_cuda(a, b, ctx),
+                      lambda: nref.pointwise_mul_ref(a, b, ctx))
+        timed.append(measure(
+            err, lambda: kntt.pointwise_mul_cuda(a, b, ctx),
+            lambda: nref.pointwise_mul_ref(a, b, ctx), 3 * polys_n * n * 4,
+            polys_n * n, INT32_OPS_S, shape=[polys_n, n]))
     entry("pointwise_mul", "src/repro_torch/csrc/ntt.cu",
-          "src/repro/kernels/ntt/ntt.py:120", measure(
-              err, lambda: kntt.pointwise_mul_cuda(a, b, ctx),
-              lambda: nref.pointwise_mul_ref(a, b, ctx),
-              3 * batch_rows * n * 4, batch_rows * n, INT32_OPS_S,
-              shape=[batch_rows, n]))
+          "src/repro/kernels/ntt/ntt.py:120", timed[-1], *timed[:-1])
 
-    # fused rotate / Hadamard / accumulate / inverse NTT at (B, num_ct, rows, N)
-    for c in params.ctxs[::-1]:           # the first prime's inputs last
-        polys = residues((bsz, num_ct, rows, n), c.q)
-        tw = residues((cpt, n), c.q)
-        f0 = residues((bsz, chunks, n), c.q)
-        f1 = residues((bsz, chunks, n), c.q)
-        err = compare("fused_rerank_intt",
-                      lambda: kfused.fused_rerank_intt_cuda(polys, tw, f0, f1,
-                                                            c),
-                      lambda: nref.fused_rotate_hadamard_intt_ref(
-                          polys, tw, f0, f1, c))
-    cells = bsz * num_ct
-    nbytes = 4 * (polys.numel() + tw.numel() + f0.numel() + f1.numel() + n
-                  + 2 * cells * n)
-    ops = cells * n * (rows * 5 + 2) + 2 * cells * ((n // 2) * logn * 3 + n)
+    # fused rotate / Hadamard / accumulate / inverse NTT reading the
+    # gathered rows (B, k', chunks, P, N) in place, as the path calls it,
+    # for the batch and for one request: every prime checked bit for bit,
+    # the timed calls cycling through the primes as the path does (the
+    # batch's rows, 63 MB, then exceed the L2)
+    kprime, nprimes = plan.kprime, params.num_primes
+    timed, witness_inputs = [], None
+    for b in (1, bsz):
+        g = torch.empty((b, kprime, chunks, nprimes, n), dtype=torch.int32,
+                        device=dev)
+        ins = []
+        for i, c in enumerate(params.ctxs):
+            g[..., i, :] = residues((b, kprime, chunks, n), c.q)
+            tw = residues((cpt, n), c.q)
+            ins.append((tw, modring.shoup_quotients(tw, c.q),
+                        residues((b, chunks, n), c.q),
+                        residues((b, chunks, n), c.q)))
+        cycle = itertools.cycle(range(nprimes))
+
+        def kern(i=None, g=g, ins=ins, cycle=cycle):
+            i = next(cycle) if i is None else i
+            return kfused.fused_rerank_intt_gathered_cuda(
+                g, i, kprime, *ins[i], params.ctxs[i])
+
+        def plain(i=0, g=g, ins=ins):
+            tw, _, f0, f1 = ins[i]
+            return nref.fused_rotate_hadamard_intt_gathered_ref(
+                g, i, kprime, tw, f0, f1, params.ctxs[i])
+
+        err = max(compare("fused_rerank_intt", lambda: kern(i),
+                          lambda: plain(i)) for i in range(nprimes))
+        # the function's inputs (the reference's fused_rerank_intt_pallas
+        # reads polys, tw, f0, f1 and ipsi) and its two outputs
+        cells = b * num_ct
+        nbytes = 4 * (b * kprime * chunks * n + cpt * n
+                      + 2 * b * chunks * n + n + 2 * cells * n)
+        ops = cells * n * (rows * 5 + 2) + 2 * cells * ((n // 2) * logn * 3
+                                                        + n)
+        timed.append(measure(
+            err, kern, plain, nbytes, ops, INT32_OPS_S,
+            shape=[b, num_ct, rows, n]))
+        witness_inputs = (g, ins, kern)
     entry("fused_rerank_intt", "src/repro_torch/csrc/fused.cu",
-          "src/repro/kernels/ntt/fused.py:132", measure(
-              err, lambda: kfused.fused_rerank_intt_cuda(polys, tw, f0, f1,
-                                                         ctx),
-              lambda: nref.fused_rotate_hadamard_intt_ref(polys, tw, f0, f1,
-                                                          ctx),
-              nbytes, ops, INT32_OPS_S, shape=[bsz, num_ct, rows, n]))
+          "src/repro/kernels/ntt/fused.py:132", timed[-1], *timed[:-1])
 
-    # staged re-rank (NTT-domain accumulators out) at the same shape: bit
-    # identical to its plain version, and staged + standalone inverse NTT
-    # bit identical to the fused-iNTT kernel (the staged witness)
-    for c in params.ctxs[::-1]:
-        polys = residues((bsz, num_ct, rows, n), c.q)
-        tw = residues((cpt, n), c.q)
-        f0 = residues((bsz, chunks, n), c.q)
-        f1 = residues((bsz, chunks, n), c.q)
+    # staged re-rank (NTT-domain accumulators out) on the batch's padded
+    # rows: bit identical to its plain version, and staged + standalone
+    # inverse NTT bit identical to the fused-iNTT kernel (the staged
+    # witness), on every prime
+    g, ins, kern = witness_inputs
+    witness = 0
+    for i, c in enumerate(params.ctxs):
+        polys = nref.gathered_polys(g, i, kprime, cpt)
+        tw, tws, f0, f1 = ins[i]
         err = compare("fused_rerank",
-                      lambda: kfused.fused_rerank_cuda(polys, tw, f0, f1, c),
+                      lambda: kfused.fused_rerank_cuda(polys, tw, tws, f0,
+                                                       f1, c),
                       lambda: nref.fused_rotate_hadamard_ref(polys, tw, f0,
                                                              f1, c))
-        staged = kfused.fused_rerank_cuda(polys, tw, f0, f1, c)
-        witness = int_err(tuple(kntt.ntt_cuda(a.reshape(-1, n), c,
-                                              inverse=True).reshape(a.shape)
-                                for a in staged),
-                          kfused.fused_rerank_intt_cuda(polys, tw, f0, f1, c))
+        staged = kfused.fused_rerank_cuda(polys, tw, tws, f0, f1, c)
+        witness = max(witness, int_err(
+            tuple(kntt.ntt_cuda(a.reshape(-1, n), c, inverse=True)
+                  .reshape(a.shape) for a in staged), kern(i)))
         check(witness == 0, f"staged + inverse NTT differs from the fused "
               f"kernel by {witness}")
+    polys = nref.gathered_polys(g, 0, kprime, cpt)
+    tw, tws, f0, f1 = ins[0]
+    cells = bsz * num_ct
     nbytes = 4 * (polys.numel() + tw.numel() + f0.numel() + f1.numel()
                   + 2 * cells * n)
     entry("fused_rerank", "src/repro_torch/csrc/fused.cu",
           "src/repro/kernels/ntt/fused.py:99", measure(
-              err, lambda: kfused.fused_rerank_cuda(polys, tw, f0, f1, ctx),
+              err, lambda: kfused.fused_rerank_cuda(polys, tw, tws, f0, f1,
+                                                    ctx),
               lambda: nref.fused_rotate_hadamard_ref(polys, tw, f0, f1, ctx),
               nbytes, cells * n * (rows * 5 + 2), INT32_OPS_S,
               shape=[bsz, num_ct, rows, n],
@@ -409,6 +457,7 @@ def serve_phase(torch, np, args, index, cloud, params, plan,
         seq_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     seq_launches = ext.launch_counts()
+    seq_shapes = shape_counts(ext.launch_shapes())
 
     # -- the same requests as one batch ----------------------------------
     b_users = users()
@@ -459,6 +508,7 @@ def serve_phase(torch, np, args, index, cloud, params, plan,
     batch_wall_ms = (time.perf_counter() - t_batch) * 1e3
     prof.__exit__(None, None, None)
     batch_launches = ext.launch_counts()
+    batch_shapes = shape_counts(ext.launch_shapes())
     busy, busy_ms = device_busy(torch, prof)
     topk_split = topk_batch_split(torch, index, pert, plan.kprime)
     topk_split["first_ms"] = stages["topk_batch"]
@@ -501,7 +551,8 @@ def serve_phase(torch, np, args, index, cloud, params, plan,
                     busy.items(), key=lambda kv: -kv[1])[:12]),
                 topk_batch_split=topk_split,
                 total_bytes=[b[2].total_bytes for b in batch],
-                launches_seq=seq_launches, launches_batch=batch_launches)
+                launches_seq=seq_launches, launches_batch=batch_launches,
+                shapes_seq=seq_shapes, shapes_batch=batch_shapes)
 
 
 def topk_batch_split(torch, index, pert, kprime: int) -> dict:
@@ -531,6 +582,34 @@ def topk_batch_split(torch, index, pert, kprime: int) -> dict:
     _, merge = wall(lambda: sref.merge_tiles_ref(vals, ids, kprime))
     _, warm = wall(lambda: batching.topk_batch(index, pert, kprime))
     return dict(h2d_ms=h2d, kernel_ms=kern, merge_ms=merge, warm_ms=warm)
+
+
+def shape_counts(counts: dict) -> list:
+    """`ext.launch_shapes()` as JSON: [[kernel, shape, launches], ...]."""
+    return [[k[0], list(k[1]), v] for k, v in sorted(counts.items())]
+
+
+def shape_key(shape) -> str:
+    return "x".join(str(d) for d in shape)
+
+
+def launch_tally(kernels: list, paths: list, shape_paths: list) -> None:
+    """Each kernel's launches over the paths' runs, in all and by shape;
+    each timed row's launches at its own shape and launches x (time -
+    bound) (``excess_ms``), the rule-2 ranking of the kernels."""
+    for kern in kernels:
+        kern["launches"] = sum(p.get(kern["name"], 0) for p in paths)
+        by_shape = collections.Counter()
+        for p in shape_paths:
+            for name, shape, count in p:
+                if name == kern["name"]:
+                    by_shape[shape_key(shape)] += count
+        kern["launches_by_shape"] = dict(by_shape)
+        for row in [kern] + kern.get("at_shapes", []):
+            row["launches_at_shape"] = by_shape.get(shape_key(row["shape"]),
+                                                    0)
+            row["excess_ms"] = row["launches_at_shape"] * (
+                row["ms"] - row["bound_ms"])
 
 
 def path_launches(name: str, counts: dict) -> dict:
@@ -670,6 +749,7 @@ def engine_phase(torch, np, args, index, params, plan, queries,
             prof.__exit__(None, None, None)
             _, busy_ms = device_busy(torch, prof)
         launches = path_launches(f"engine {name}", ext.launch_counts())
+        shapes = shape_counts(ext.launch_shapes())
         engine.close()
         check(len(res) == 2 * len(queries) and all(r.ok for r in res),
               f"engine {name}: {[r.error for r in res if not r.ok]}")
@@ -690,7 +770,8 @@ def engine_phase(torch, np, args, index, params, plan, queries,
             p99_latency_s=agg["p99_latency_s"],
             mean_latency_s=agg["mean_latency_s"],
             stages=engine.trace_summary()["stages"],
-            cache_stats=engine.cache_stats(), launches=launches)
+            cache_stats=engine.cache_stats(), launches=launches,
+            shapes=shapes)
     base = results["dense_batched"]
     for name, res in results.items():
         for a, b in zip(base, res):
@@ -777,8 +858,8 @@ def main(argv=None) -> int:
     engine_s = time.perf_counter() - t0
     paths = [serve["launches_seq"], serve["launches_batch"]] + [
         run["launches"] for run in engine.values()]
-    for kern in kernels:
-        kern["launches"] = sum(p.get(kern["name"], 0) for p in paths)
+    launch_tally(kernels, paths, [serve["shapes_seq"], serve["shapes_batch"]]
+                 + [run["shapes"] for run in engine.values()])
     emit({"kernels": kernels})
     emit({"phase": "serve", "n_docs": args.n_docs, "dim": dim, "k": plan.k,
           "kprime": plan.kprime, "path": plan.path, "eps": plan.eps,

@@ -6,8 +6,10 @@ tensors: residues are canonical in [0, q) with q < 2^20, so a product is
 below 2^40 and ``%`` gives the same bits as the reference's int32 limb
 split (which existed only to fit TPU int32 lanes).  The CUDA kernels use a
 64-bit Barrett reduction with ``barrett64 = floor(2^64 / q)`` (pointwise
-and fused re-rank kernels) or, in the standalone NTT, Shoup products with a
-precomputed quotient ``floor(w * 2^32 / q)`` for every twiddle ``w``.
+product, the fused re-rank's Hadamard products and sums) or Shoup products
+with a precomputed quotient ``floor(w * 2^32 / q)`` for every constant
+``w`` (the NTT's twiddles, the fused re-rank's slot twiddles:
+`shoup_quotients`).
 """
 
 from __future__ import annotations
@@ -176,6 +178,14 @@ class PrimeCtx:
 # ---------------------------------------------------------------------------
 
 
+def shoup_quotients(w: torch.Tensor, q) -> torch.Tensor:
+    """floor(w * 2^32 / q) of every residue in ``w`` (int tensor in [0, q);
+    ``q`` an int or a tensor broadcast against ``w``), as uint32 stored in
+    int32 bits: the Shoup quotient table of a table of constants."""
+    s = torch.div(w.to(torch.int64) << 32, q, rounding_mode="floor")
+    return torch.where(s >= 1 << 31, s - (1 << 32), s).to(torch.int32)
+
+
 def barrett_reduce(x: torch.Tensor, q: int, mu: int) -> torch.Tensor:
     """x mod q for 0 <= x < 2^31 — the reference's contract; on int64
     tensors the exact remainder gives the same bits."""
@@ -235,6 +245,7 @@ __all__ = [
     "root_of_unity",
     "bit_reverse_indices",
     "PrimeCtx",
+    "shoup_quotients",
     "barrett_reduce",
     "mod_mul",
     "mod_add",

@@ -334,6 +334,12 @@ class CandidateCache:
     cands_per_ct: int
     num_chunks: int
 
+    @functools.cached_property
+    def twiddles_shoup(self) -> torch.Tensor:
+        """(P, cpt, N) Shoup quotients of ``twiddles`` (`_twiddles_shoup`),
+        built on first use."""
+        return _twiddles_shoup(self.params, self.twiddles)
+
     @property
     def nbytes(self) -> int:
         return self.polys.numel() * 4
@@ -492,6 +498,16 @@ def _slot_twiddles(params: RlweParams, n_dim: int,
     return _ntt_per_prime(_to_rns(mono, params), params, device)
 
 
+def _twiddles_shoup(params: RlweParams,
+                    twiddles: torch.Tensor) -> torch.Tensor:
+    """Shoup quotients floor(w * 2^32 / q_p) of the slot twiddles (P, cpt,
+    N), for the fused re-rank kernel's rotate (the NTT's tables are built
+    the same way, `PrimeCtx.table`)."""
+    q = torch.tensor(params.primes, dtype=torch.int64,
+                     device=twiddles.device).view(-1, 1, 1)
+    return modring.shoup_quotients(twiddles, q)
+
+
 def build_candidate_cache(params: RlweParams,
                           embeddings: torch.Tensor) -> CandidateCache:
     """Precompute the NTT-domain plaintexts of every document (slot 0) plus
@@ -630,6 +646,11 @@ class ShardedCandidateCache:
     admit_dropped: int = 0         # admission requests dropped (queue full)
     policy_deferrals: int = 0      # touches below admit_threshold (no admit)
     admit_failures: int = 0        # admitter copies that raised (dropped)
+
+    @functools.cached_property
+    def twiddles_shoup(self) -> torch.Tensor:
+        """As `CandidateCache.twiddles_shoup`."""
+        return _twiddles_shoup(self.params, self.twiddles)
 
     def __post_init__(self):
         # one lock guards the resident set + policy counters; the
@@ -1063,23 +1084,19 @@ def _ids_tensor(ids, device: torch.device) -> torch.Tensor:
     return ids.to(device=device, dtype=torch.int64)
 
 
-def _scores_pipeline(c0, c1, g, twiddles, ctxs, cpt: int, pad: int):
-    """Zero padding for the last result ciphertext's empty slots, then per
-    prime the query forward NTTs and the fused rotate -> Hadamard ->
-    slot/chunk mod-sum -> inverse NTT.  ``g`` is (B, nc, chunks, P, N)."""
-    bsz = g.shape[0]
-    chunks, n = c0.shape[1], c0.shape[-1]
-    if pad:
-        g = torch.cat([g, torch.zeros((bsz, pad) + tuple(g.shape[2:]),
-                                      dtype=g.dtype, device=g.device)], dim=1)
-    num_ct = g.shape[1] // cpt
+def _scores_pipeline(c0, c1, g, cache, ctxs):
+    """Per prime the query forward NTTs and the fused rotate -> Hadamard ->
+    slot/chunk mod-sum -> inverse NTT over the gathered rows ``g`` (B, nc,
+    chunks, P, N), read in place on the card: the last result
+    ciphertext's empty slots contribute nothing, as zero padding would."""
+    num_cands = g.shape[1]
     outs0, outs1 = [], []
     for i, ctx in enumerate(ctxs):
         f0 = ntt_ops.ntt_fwd(c0[:, :, i, :], ctx)
         f1 = ntt_ops.ntt_fwd(c1[:, :, i, :], ctx)
-        polys_i = g[..., i, :].reshape(bsz, num_ct, cpt * chunks, n)
-        acc0, acc1 = ntt_ops.fused_rotate_hadamard_intt(
-            polys_i, twiddles[i], f0, f1, ctx)
+        acc0, acc1 = ntt_ops.fused_rotate_hadamard_intt_gathered(
+            g, i, num_cands, cache.twiddles[i], cache.twiddles_shoup[i], f0,
+            f1, ctx)
         outs0.append(acc0)
         outs1.append(acc1)
     return torch.stack(outs0, dim=2), torch.stack(outs1, dim=2)
@@ -1107,8 +1124,6 @@ def encrypted_scores_cached_batch(params: RlweParams,
     bsz, num_cands = ids.shape
     assert len(q_cts) == bsz
     cache.check_compatible(params, q_cts[0].n_dim)
-    cpt = cache.cands_per_ct
-    pad = -(-num_cands // cpt) * cpt - num_cands
     c0 = torch.stack([q.c0 for q in q_cts])                # (B, chunks, P, N)
     c1 = torch.stack([q.c1 for q in q_cts])
     if sharded:
@@ -1116,8 +1131,7 @@ def encrypted_scores_cached_batch(params: RlweParams,
     else:
         g = cache.polys.index_select(0, ids.reshape(-1)).reshape(
             (bsz, num_cands) + tuple(cache.polys.shape[1:]))
-    all0, all1 = _scores_pipeline(c0, c1, g, cache.twiddles, params.ctxs,
-                                  cpt, pad)
+    all0, all1 = _scores_pipeline(c0, c1, g, cache, params.ctxs)
     return ScoreCiphertextBatch(c0=all0, c1=all1, n_dim=cache.n_dim,
                                 num_cands=num_cands)
 

@@ -3,6 +3,11 @@
 // .cu files beside this one behind a plain C interface that includes no
 // PyTorch header, so nvcc compiles them in seconds; only this file includes
 // PyTorch.  Argument errors raise ValueError, launch errors RuntimeError.
+//
+// Messages are built from std::string and std::to_string alone and thrown
+// as pybind11 exceptions: no check formats through c10::str, whose
+// std::ostringstream crashed this extension on the H100 machine when a
+// failing check streamed an integer into its message.
 
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -10,7 +15,11 @@
 #include <torch/extension.h>
 
 #include <cstdint>
+#include <stdexcept>
+#include <string>
 #include <tuple>
+
+#include "fused.h"
 
 extern "C" {
 int ntt_fwd_launch(const void* x, void* out, const void* psi,
@@ -22,15 +31,6 @@ int ntt_inv_launch(const void* x, void* out, const void* ipsi,
                    uint32_t tail_ws, void* stream);
 int pointwise_mul_launch(const void* a, const void* b, void* out,
                          int64_t count, uint32_t q, uint64_t m, void* stream);
-int fused_rerank_intt_launch(const void* polys, const void* tw,
-                             const void* f0, const void* f1, const void* ipsi,
-                             void* out0, void* out1, int batch, int num_ct,
-                             int cpt, int chunks, int n, uint32_t q,
-                             uint64_t m, uint32_t n_inv, void* stream);
-int fused_rerank_launch(const void* polys, const void* tw, const void* f0,
-                        const void* f1, void* out0, void* out1, int batch,
-                        int num_ct, int cpt, int chunks, int n, uint32_t q,
-                        uint64_t m, void* stream);
 int score_topk_launch(const void* queries, const void* corpus, void* vals,
                       void* idx, int batch, int n_rows, int dim, int kk,
                       int tile, void* stream);
@@ -41,32 +41,69 @@ namespace {
 
 using torch::Tensor;
 
-void check_tensor(const Tensor& t, const char* name, torch::ScalarType dtype,
-                  int64_t dim) {
-  TORCH_CHECK_VALUE(t.is_cuda(), name, " must be a CUDA tensor, got ",
-                    t.device());
-  TORCH_CHECK_VALUE(t.scalar_type() == dtype, name, " must be ", dtype,
-                    ", got ", t.scalar_type());
-  TORCH_CHECK_VALUE(t.dim() == dim, name, " must have ", dim,
-                    " dimensions, got ", t.sizes());
-  TORCH_CHECK_VALUE(t.is_contiguous(), name, " must be contiguous");
+[[noreturn]] void value_error(const std::string& msg) {
+  throw pybind11::value_error(msg);
+}
+
+std::string str(int64_t v) { return std::to_string(v); }
+
+std::string shape(const Tensor& t) {
+  std::string s = "(";
+  for (int64_t i = 0; i < t.dim(); ++i) {
+    if (i > 0) s += ", ";
+    s += std::to_string(t.size(i));
+  }
+  return s + (t.dim() == 1 ? ",)" : ")");
+}
+
+// device, dtype and rank; contiguity unless the kernel reads strides
+void check_tensor(const Tensor& t, const std::string& name,
+                  torch::ScalarType dtype, int64_t dim,
+                  bool contiguous = true) {
+  if (!t.is_cuda()) {
+    value_error(name + " must be a CUDA tensor, got a " +
+                c10::DeviceTypeName(t.device().type(), true) + " tensor");
+  }
+  if (t.scalar_type() != dtype) {
+    value_error(name + " must be " + c10::toString(dtype) + ", got " +
+                c10::toString(t.scalar_type()));
+  }
+  if (t.dim() != dim) {
+    value_error(name + " must have " + str(dim) + " dimensions, got shape " +
+                shape(t));
+  }
+  if (contiguous && !t.is_contiguous()) {
+    value_error(name + " must be contiguous");
+  }
 }
 
 // the kernels' Barrett step needs q < 2^20 (products < 2^40)
 void check_modulus(int64_t q) {
-  TORCH_CHECK_VALUE(q > 2 && q < (int64_t{1} << 20),
-                    "q must lie in (2, 2^20), got ", q);
+  if (q <= 2 || q >= (int64_t{1} << 20)) {
+    value_error("q must lie in (2, 2^20), got " + str(q));
+  }
 }
 
 void check_ring(int64_t n, int64_t q) {
-  TORCH_CHECK_VALUE(n >= 2 && n <= 16384 && (n & (n - 1)) == 0,
-                    "N must be a power of two in [2, 16384], got ", n);
+  if (n < 2 || n > 16384 || (n & (n - 1)) != 0) {
+    value_error("N must be a power of two in [2, 16384], got " + str(n));
+  }
   check_modulus(q);
 }
 
+void check_table(const Tensor& t, const std::string& name, int64_t n) {
+  check_tensor(t, name, torch::kInt32, 1);
+  if (t.size(0) != n) {
+    value_error(name + " has " + str(t.size(0)) + " entries, N is " + str(n));
+  }
+}
+
 void check_launch(int err, const char* fn) {
-  TORCH_CHECK(err == cudaSuccess, fn, " failed: ",
-              cudaGetErrorString(static_cast<cudaError_t>(err)));
+  if (err != cudaSuccess) {
+    throw std::runtime_error(
+        std::string(fn) + " failed: " +
+        cudaGetErrorString(static_cast<cudaError_t>(err)));
+  }
 }
 
 void* stream() { return c10::cuda::getCurrentCUDAStream().stream(); }
@@ -77,13 +114,10 @@ Tensor ntt(const Tensor& x, const Tensor& table, const Tensor& shoup,
            bool inverse, int64_t q, int64_t n_inv, int64_t n_inv_s,
            int64_t tail_w, int64_t tail_ws) {
   check_tensor(x, "x", torch::kInt32, 2);
-  check_tensor(table, "table", torch::kInt32, 1);
-  check_tensor(shoup, "shoup", torch::kInt32, 1);
   const int64_t n = x.size(1);
   check_ring(n, q);
-  TORCH_CHECK_VALUE(table.size(0) == n && shoup.size(0) == n, "tables have ",
-                    table.size(0), " and ", shoup.size(0), " entries, N is ",
-                    n);
+  check_table(table, "table", n);
+  check_table(shoup, "shoup", n);
   const c10::cuda::CUDAGuard guard(x.device());
   Tensor out = torch::empty_like(x);
   const auto b = x.size(0);
@@ -105,8 +139,9 @@ Tensor ntt(const Tensor& x, const Tensor& table, const Tensor& shoup,
 Tensor pointwise_mul(const Tensor& a, const Tensor& b, int64_t q, int64_t m) {
   check_tensor(a, "a", torch::kInt32, a.dim());
   check_tensor(b, "b", torch::kInt32, a.dim());
-  TORCH_CHECK_VALUE(a.sizes() == b.sizes(), "shapes differ: ", a.sizes(),
-                    " vs ", b.sizes());
+  if (a.sizes() != b.sizes()) {
+    value_error("shapes differ: " + shape(a) + " vs " + shape(b));
+  }
   check_modulus(q);
   const c10::cuda::CUDAGuard guard(a.device());
   Tensor out = torch::empty_like(a);
@@ -118,74 +153,164 @@ Tensor pointwise_mul(const Tensor& a, const Tensor& b, int64_t q, int64_t m) {
   return out;
 }
 
-// shape checks shared by both fused re-rank kernels: polys (B, num_ct,
-// cpt*chunks, N), tw (cpt, N), f0/f1 (B, chunks, N)
-void check_fused(const Tensor& polys, const Tensor& tw, const Tensor& f0,
-                 const Tensor& f1, int64_t q) {
+// The fused re-rank's common arguments: tw/tw_shoup (cpt, N), f0/f1
+// (B, chunks, N), every pointer aligned for the kernel's vector loads.
+FusedArgs fused_args(const Tensor& tw, const Tensor& tw_shoup,
+                     const Tensor& f0, const Tensor& f1, int64_t bsz,
+                     int64_t chunks, int64_t n, int64_t q, int64_t m) {
+  check_tensor(tw, "tw", torch::kInt32, 2);
+  check_tensor(tw_shoup, "tw_shoup", torch::kInt32, 2);
+  check_tensor(f0, "f0", torch::kInt32, 3);
+  check_tensor(f1, "f1", torch::kInt32, 3);
+  check_ring(n, q);
+  const int64_t cpt = tw.size(0);
+  if (cpt < 1 || tw.size(1) != n || tw_shoup.sizes() != tw.sizes() ||
+      f0.size(0) != bsz || f0.size(1) != chunks || f0.size(2) != n ||
+      f1.sizes() != f0.sizes()) {
+    value_error("inconsistent shapes for B " + str(bsz) + ", chunks " +
+                str(chunks) + ", N " + str(n) + ": tw " + shape(tw) +
+                ", tw_shoup " + shape(tw_shoup) + ", f0 " + shape(f0) +
+                ", f1 " + shape(f1));
+  }
+  if (cpt * chunks * (q - 1) >= (int64_t{1} << 31)) {
+    value_error("int32 accumulator would wrap: " + str(cpt * chunks) +
+                " rows at q " + str(q));
+  }
+  if (bsz >= 65536 || chunks < 1) {
+    value_error("need B < 65536 and chunks >= 1, got B " + str(bsz) +
+                ", chunks " + str(chunks));
+  }
+  const int64_t align = 4 * (n < 4 ? n : 4);  // bytes of a vector load
+  for (const Tensor* t : {&tw, &tw_shoup, &f0, &f1}) {
+    if (reinterpret_cast<uintptr_t>(t->data_ptr()) % align != 0) {
+      value_error("tw, tw_shoup, f0 and f1 must be " + str(align) +
+                  "-byte aligned");
+    }
+  }
+  FusedArgs a{};
+  a.tw = tw.data_ptr();
+  a.tw_shoup = tw_shoup.data_ptr();
+  a.f0 = f0.data_ptr();
+  a.f1 = f1.data_ptr();
+  a.batch = static_cast<int>(bsz);
+  a.cpt = static_cast<int>(cpt);
+  a.chunks = static_cast<int>(chunks);
+  a.n = static_cast<int>(n);
+  a.q = static_cast<uint32_t>(q);
+  a.barrett = static_cast<uint64_t>(m);
+  return a;
+}
+
+// g (B, nc, chunks, P, N) as the gather produced it, read at prime `prime`
+// through its strides; candidates at or past num_cands contribute nothing.
+// `name`: the caller's name for g, in messages.
+FusedArgs fused_gathered(const Tensor& g, int64_t prime, int64_t num_cands,
+                         const Tensor& tw, const Tensor& tw_shoup,
+                         const Tensor& f0, const Tensor& f1, int64_t q,
+                         int64_t m, const std::string& name = "g") {
+  check_tensor(g, name, torch::kInt32, 5, false);
+  const int64_t n = g.size(4);
+  FusedArgs a = fused_args(tw, tw_shoup, f0, f1, g.size(0), g.size(2), n, q,
+                           m);
+  if (prime < 0 || prime >= g.size(3)) {
+    value_error("prime " + str(prime) + " out of range for g of shape " +
+                shape(g));
+  }
+  if (num_cands < 0 || num_cands > g.size(1) || num_cands >= INT32_MAX) {
+    value_error("num_cands " + str(num_cands) + " out of range for g of " +
+                "shape " + shape(g));
+  }
+  const int64_t vw = n < 4 ? n : 4;
+  if (g.stride(4) != 1 || g.stride(0) % vw || g.stride(1) % vw ||
+      g.stride(2) % vw || g.stride(3) % vw ||
+      reinterpret_cast<uintptr_t>(g.data_ptr()) % (4 * vw) != 0) {
+    value_error(name + " must have unit stride in N and strides " +
+                "divisible by " + str(vw) + ", " + str(4 * vw) +
+                "-byte aligned; strides (" + str(g.stride(0)) + ", " +
+                str(g.stride(1)) + ", " + str(g.stride(2)) + ", " +
+                str(g.stride(3)) + ", " + str(g.stride(4)) + ")");
+  }
+  a.rows = static_cast<const int32_t*>(g.data_ptr()) + prime * g.stride(3);
+  a.stride_b = g.stride(0);
+  a.stride_cand = g.stride(1);
+  a.stride_chunk = g.stride(2);
+  a.num_ct = static_cast<int>((num_cands + a.cpt - 1) / a.cpt);
+  a.num_cands = static_cast<int>(num_cands);
+  return a;
+}
+
+// polys (B, num_ct, cpt * chunks, N), slot-major and contiguous: the
+// gathered layout with one prime, (B, num_ct * cpt, chunks, 1, N)
+FusedArgs fused_polys(const Tensor& polys, const Tensor& tw,
+                      const Tensor& tw_shoup, const Tensor& f0,
+                      const Tensor& f1, int64_t q, int64_t m) {
   check_tensor(polys, "polys", torch::kInt32, 4);
   check_tensor(tw, "tw", torch::kInt32, 2);
   check_tensor(f0, "f0", torch::kInt32, 3);
-  check_tensor(f1, "f1", torch::kInt32, 3);
-  const int64_t bsz = polys.size(0), num_ct = polys.size(1);
-  const int64_t rows = polys.size(2), n = polys.size(3);
   const int64_t cpt = tw.size(0), chunks = f0.size(1);
-  check_ring(n, q);
-  TORCH_CHECK_VALUE(rows == cpt * chunks, "rows ", rows, " != cpt ", cpt,
-                    " * chunks ", chunks);
-  TORCH_CHECK_VALUE(tw.size(1) == n && f0.size(0) == bsz && f0.size(2) == n &&
-                        f1.sizes() == f0.sizes(),
-                    "inconsistent shapes: polys ", polys.sizes(), ", tw ",
-                    tw.sizes(), ", f0 ", f0.sizes(), ", f1 ", f1.sizes());
-  TORCH_CHECK_VALUE(rows * (q - 1) < (int64_t{1} << 31),
-                    "int32 accumulator would wrap: rows ", rows, ", q ", q);
-  TORCH_CHECK_VALUE(bsz < 65536 && num_ct < INT32_MAX, "grid too large");
+  if (cpt < 1 || chunks < 1 || polys.size(2) != cpt * chunks) {
+    value_error("polys " + shape(polys) + " must be (B, num_ct, cpt * " +
+                "chunks, N) with cpt " + str(cpt) + " and chunks " +
+                str(chunks));
+  }
+  const int64_t cands = polys.size(1) * cpt;
+  return fused_gathered(
+      polys.view({polys.size(0), cands, chunks, 1, polys.size(3)}), 0, cands,
+      tw, tw_shoup, f0, f1, q, m, "polys");
 }
 
-std::tuple<Tensor, Tensor> fused_rerank_intt(const Tensor& polys,
-                                             const Tensor& tw,
-                                             const Tensor& f0,
-                                             const Tensor& f1,
-                                             const Tensor& ipsi, int64_t q,
-                                             int64_t m, int64_t n_inv) {
-  check_fused(polys, tw, f0, f1, q);
-  check_tensor(ipsi, "ipsi", torch::kInt32, 1);
-  const int64_t bsz = polys.size(0), num_ct = polys.size(1);
-  const int64_t n = polys.size(3);
-  TORCH_CHECK_VALUE(ipsi.size(0) == n, "ipsi has ", ipsi.size(0),
-                    " entries, N is ", n);
-  const c10::cuda::CUDAGuard guard(polys.device());
-  Tensor out0 = torch::empty({bsz, num_ct, n}, polys.options());
+std::tuple<Tensor, Tensor> launch_fused(FusedArgs& a, const Tensor& like,
+                                        const char* fn) {
+  const c10::cuda::CUDAGuard guard(like.device());
+  Tensor out0 = torch::empty({a.batch, a.num_ct, a.n}, like.options());
   Tensor out1 = torch::empty_like(out0);
-  check_launch(fused_rerank_intt_launch(
-                   polys.data_ptr(), tw.data_ptr(), f0.data_ptr(),
-                   f1.data_ptr(), ipsi.data_ptr(), out0.data_ptr(),
-                   out1.data_ptr(), static_cast<int>(bsz),
-                   static_cast<int>(num_ct), static_cast<int>(tw.size(0)),
-                   static_cast<int>(f0.size(1)), static_cast<int>(n),
-                   static_cast<uint32_t>(q), static_cast<uint64_t>(m),
-                   static_cast<uint32_t>(n_inv), stream()),
-               "fused_rerank_intt_launch");
+  a.out0 = out0.data_ptr();
+  a.out1 = out1.data_ptr();
+  check_launch(fused_rerank_launch(&a, stream()), fn);
   return {out0, out1};
+}
+
+void intt_args(FusedArgs& a, const Tensor& ipsi, const Tensor& ipsi_shoup,
+               int64_t n_inv, int64_t n_inv_s, int64_t tail_w,
+               int64_t tail_ws) {
+  check_table(ipsi, "ipsi", a.n);
+  check_table(ipsi_shoup, "ipsi_shoup", a.n);
+  a.ipsi = ipsi.data_ptr();
+  a.ipsi_shoup = ipsi_shoup.data_ptr();
+  a.n_inv = static_cast<uint32_t>(n_inv);
+  a.n_inv_shoup = static_cast<uint32_t>(n_inv_s);
+  a.tail_w = static_cast<uint32_t>(tail_w);
+  a.tail_ws = static_cast<uint32_t>(tail_ws);
+  a.intt = 1;
+}
+
+std::tuple<Tensor, Tensor> fused_rerank_intt(
+    const Tensor& polys, const Tensor& tw, const Tensor& tw_shoup,
+    const Tensor& f0, const Tensor& f1, const Tensor& ipsi,
+    const Tensor& ipsi_shoup, int64_t q, int64_t m, int64_t n_inv,
+    int64_t n_inv_s, int64_t tail_w, int64_t tail_ws) {
+  FusedArgs a = fused_polys(polys, tw, tw_shoup, f0, f1, q, m);
+  intt_args(a, ipsi, ipsi_shoup, n_inv, n_inv_s, tail_w, tail_ws);
+  return launch_fused(a, polys, "fused_rerank_launch");
+}
+
+std::tuple<Tensor, Tensor> fused_rerank_intt_gathered(
+    const Tensor& g, int64_t prime, int64_t num_cands, const Tensor& tw,
+    const Tensor& tw_shoup, const Tensor& f0, const Tensor& f1,
+    const Tensor& ipsi, const Tensor& ipsi_shoup, int64_t q, int64_t m,
+    int64_t n_inv, int64_t n_inv_s, int64_t tail_w, int64_t tail_ws) {
+  FusedArgs a = fused_gathered(g, prime, num_cands, tw, tw_shoup, f0, f1, q,
+                               m);
+  intt_args(a, ipsi, ipsi_shoup, n_inv, n_inv_s, tail_w, tail_ws);
+  return launch_fused(a, g, "fused_rerank_launch");
 }
 
 std::tuple<Tensor, Tensor> fused_rerank(const Tensor& polys, const Tensor& tw,
+                                        const Tensor& tw_shoup,
                                         const Tensor& f0, const Tensor& f1,
                                         int64_t q, int64_t m) {
-  check_fused(polys, tw, f0, f1, q);
-  const int64_t bsz = polys.size(0), num_ct = polys.size(1);
-  const int64_t n = polys.size(3);
-  const c10::cuda::CUDAGuard guard(polys.device());
-  Tensor out0 = torch::empty({bsz, num_ct, n}, polys.options());
-  Tensor out1 = torch::empty_like(out0);
-  check_launch(fused_rerank_launch(
-                   polys.data_ptr(), tw.data_ptr(), f0.data_ptr(),
-                   f1.data_ptr(), out0.data_ptr(), out1.data_ptr(),
-                   static_cast<int>(bsz), static_cast<int>(num_ct),
-                   static_cast<int>(tw.size(0)), static_cast<int>(f0.size(1)),
-                   static_cast<int>(n), static_cast<uint32_t>(q),
-                   static_cast<uint64_t>(m), stream()),
-               "fused_rerank_launch");
-  return {out0, out1};
+  FusedArgs a = fused_polys(polys, tw, tw_shoup, f0, f1, q, m);
+  return launch_fused(a, polys, "fused_rerank_launch");
 }
 
 std::tuple<Tensor, Tensor> score_topk(const Tensor& queries,
@@ -195,17 +320,19 @@ std::tuple<Tensor, Tensor> score_topk(const Tensor& queries,
   check_tensor(corpus, "corpus", torch::kFloat32, 2);
   const int64_t b = queries.size(0), dim = queries.size(1);
   const int64_t n_rows = corpus.size(0);
-  TORCH_CHECK_VALUE(corpus.size(1) == dim, "dims differ: ", queries.sizes(),
-                    " vs ", corpus.sizes());
-  TORCH_CHECK_VALUE(1 <= kk && kk <= tile && n_rows < INT32_MAX,
-                    "need 1 <= kk <= tile and N < 2^31, got kk=", kk,
-                    ", tile=", tile, ", N=", n_rows);
-  TORCH_CHECK_VALUE(b < INT32_MAX && dim < INT32_MAX && tile < INT32_MAX &&
-                        score_topk_smem(1, static_cast<int>(dim),
-                                        static_cast<int>(kk),
-                                        static_cast<int>(tile)) <= 227 * 1024,
-                    "dim ", dim, ", tile ", tile, " and kk ", kk,
-                    " exceed a block's shared memory");
+  if (corpus.size(1) != dim) {
+    value_error("dims differ: " + shape(queries) + " vs " + shape(corpus));
+  }
+  if (kk < 1 || kk > tile || n_rows >= INT32_MAX) {
+    value_error("need 1 <= kk <= tile and N < 2^31, got kk=" + str(kk) +
+                ", tile=" + str(tile) + ", N=" + str(n_rows));
+  }
+  if (b >= INT32_MAX || dim >= INT32_MAX || tile >= INT32_MAX ||
+      score_topk_smem(1, static_cast<int>(dim), static_cast<int>(kk),
+                      static_cast<int>(tile)) > 227 * 1024) {
+    value_error("dim " + str(dim) + ", tile " + str(tile) + " and kk " +
+                str(kk) + " exceed a block's shared memory");
+  }
   const c10::cuda::CUDAGuard guard(queries.device());
   const int64_t num_tiles = (n_rows + tile - 1) / tile;
   Tensor vals = torch::empty({num_tiles, b, kk}, queries.options());
@@ -229,6 +356,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
           "elementwise modular product (csrc/ntt.cu)");
   mod.def("fused_rerank_intt", &fused_rerank_intt,
           "fused rotate/Hadamard/sum/inverse NTT (csrc/fused.cu)");
+  mod.def("fused_rerank_intt_gathered", &fused_rerank_intt_gathered,
+          "fused_rerank_intt reading the gathered cache rows in place "
+          "(csrc/fused.cu)");
   mod.def("fused_rerank", &fused_rerank,
           "fused rotate/Hadamard/sum, NTT domain (csrc/fused.cu)");
   mod.def("score_topk", &score_topk,

@@ -9,7 +9,8 @@ sources in parallel and rebuilds only what changed.  A failed or missing
 build raises; nothing falls back to the plain path.
 
 Every wrapper that launches a kernel adds one to its count in
-`launch_counts` where it launches, and nowhere else.
+`launch_counts` where it launches, and nowhere else; `launch_shapes`
+splits the same counts by the shape the kernel was launched at.
 """
 
 from __future__ import annotations
@@ -31,23 +32,34 @@ _lock = threading.Lock()
 _ext = None
 _count_lock = threading.Lock()
 _launches: collections.Counter = collections.Counter()
+_shapes: collections.Counter = collections.Counter()
 build_info: dict = {}       # builds started, seconds of the last build
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, shape) -> None:
+    """One launch of kernel ``name`` at ``shape`` (the kernel's own view of
+    its main input, e.g. (batch, N) for the NTT)."""
     # the serving engine's retry lane launches kernels from its own thread
     with _count_lock:
         _launches[name] += 1
+        _shapes[(name, tuple(int(d) for d in shape))] += 1
 
 
 def reset_launches() -> None:
     with _count_lock:
         _launches.clear()
+        _shapes.clear()
 
 
 def launch_counts() -> dict:
     with _count_lock:
         return dict(_launches)
+
+
+def launch_shapes() -> dict:
+    """{(name, shape): launches} since the last `reset_launches`."""
+    with _count_lock:
+        return dict(_shapes)
 
 
 def builds_started() -> int:
@@ -94,5 +106,6 @@ def require_cuda(*tensors: torch.Tensor) -> None:
 
 
 __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "extension", "count_launch",
-           "reset_launches", "launch_counts", "builds_started", "build_info",
+           "reset_launches", "launch_counts", "launch_shapes",
+           "builds_started", "build_info",
            "on_cuda", "require_cuda"]

@@ -24,7 +24,7 @@ def ntt_cuda(x: torch.Tensor, ctx: PrimeCtx, *,
     out = ext.extension().ntt(x, ctx.table(kind, x.device),
                               ctx.table(kind + "_shoup", x.device), inverse,
                               ctx.q, *ctx.inv_tail)
-    ext.count_launch("ntt_inv" if inverse else "ntt_fwd")
+    ext.count_launch("ntt_inv" if inverse else "ntt_fwd", x.shape)
     return out
 
 
@@ -34,7 +34,8 @@ def pointwise_mul_cuda(a: torch.Tensor, b: torch.Tensor,
     tensors."""
     ext.require_cuda(a, b)
     out = ext.extension().pointwise_mul(a, b, ctx.q, ctx.barrett64)
-    ext.count_launch("pointwise_mul")
+    ext.count_launch("pointwise_mul",
+                     (a.numel() // a.shape[-1], a.shape[-1]))   # as rows
     return out
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.crypto.modring import PrimeCtx
+from repro_torch.crypto.modring import PrimeCtx, shoup_quotients
 from repro_torch.kernels.ext import on_cuda
 from repro_torch.kernels.ntt import fused as _fused
 from repro_torch.kernels.ntt import ntt as _kern
@@ -52,8 +52,9 @@ def fused_rotate_hadamard(polys, tw, f0, f1, ctx: PrimeCtx):
     `fused_rotate_hadamard_intt` bit for bit (the staged witness)."""
     if not on_cuda(polys):
         return _ref.fused_rotate_hadamard_ref(polys, tw, f0, f1, ctx)
+    tw = tw.contiguous()
     return _fused.fused_rerank_cuda(
-        polys.contiguous(), tw.contiguous(), f0.contiguous(),
+        polys.contiguous(), tw, shoup_quotients(tw, ctx.q), f0.contiguous(),
         f1.contiguous(), ctx)
 
 
@@ -68,9 +69,31 @@ def fused_rotate_hadamard_intt(polys, tw, f0, f1, ctx: PrimeCtx):
     rotate/Hadamard + `ntt_inv` pipeline."""
     if not on_cuda(polys):
         return _ref.fused_rotate_hadamard_intt_ref(polys, tw, f0, f1, ctx)
+    tw = tw.contiguous()
     return _fused.fused_rerank_intt_cuda(
-        polys.contiguous(), tw.contiguous(), f0.contiguous(),
+        polys.contiguous(), tw, shoup_quotients(tw, ctx.q), f0.contiguous(),
         f1.contiguous(), ctx)
+
+
+def fused_rotate_hadamard_intt_gathered(g, prime: int, num_cands: int, tw,
+                                        tw_shoup, f0, f1, ctx: PrimeCtx):
+    """`fused_rotate_hadamard_intt` on the gathered cache rows as the gather
+    produced them: g (B, nc, chunks, P, N), read at prime index ``prime``;
+    the candidates are ``g[:, :num_cands]`` in result-ciphertext order, cpt
+    = ``tw.shape[0]`` to a ciphertext, and the last ciphertext's empty
+    slots contribute nothing.  ``tw_shoup``: the twiddles' Shoup quotients
+    (the cache's ``twiddles_shoup[prime]``; the kernel's rotate reads them,
+    the plain version does not).
+    Returns (acc0, acc1), each (B, ceil(num_cands / cpt), N).
+
+    On a CUDA tensor the kernel reads ``g`` in place (no pad, no per-prime
+    copy); on the CPU the plain version pads and reshapes."""
+    if not on_cuda(g):
+        return _ref.fused_rotate_hadamard_intt_gathered_ref(
+            g, prime, num_cands, tw, f0, f1, ctx)
+    return _fused.fused_rerank_intt_gathered_cuda(
+        g, prime, num_cands, tw.contiguous(), tw_shoup.contiguous(),
+        f0.contiguous(), f1.contiguous(), ctx)
 
 
 def negacyclic_mul(a, b, ctx: PrimeCtx):
@@ -79,4 +102,5 @@ def negacyclic_mul(a, b, ctx: PrimeCtx):
 
 
 __all__ = ["ntt_fwd", "ntt_inv", "pointwise_mul", "fused_rotate_hadamard",
-           "fused_rotate_hadamard_intt", "negacyclic_mul"]
+           "fused_rotate_hadamard_intt",
+           "fused_rotate_hadamard_intt_gathered", "negacyclic_mul"]

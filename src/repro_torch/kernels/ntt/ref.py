@@ -89,6 +89,26 @@ def fused_rotate_hadamard_intt_ref(polys, tw, f0, f1, ctx: PrimeCtx):
     return ntt_inv_ref(acc0, ctx), ntt_inv_ref(acc1, ctx)
 
 
+def gathered_polys(g, prime: int, num_cands: int, cpt: int) -> torch.Tensor:
+    """The (B, num_ct, cpt*chunks, N) slot-major rows of prime ``prime``
+    from gathered cache rows g (B, nc, chunks, P, N): candidates at or
+    past ``num_cands`` dropped, the last result ciphertext's empty slots
+    zero-padded (a contiguous copy)."""
+    bsz, _, chunks, _, n = g.shape
+    rows = g[:, :num_cands, :, prime, :]
+    pad = -(-num_cands // cpt) * cpt - num_cands
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((bsz, pad, chunks, n))], dim=1)
+    return rows.reshape(bsz, -1, cpt * chunks, n).contiguous()
+
+
+def fused_rotate_hadamard_intt_gathered_ref(g, prime: int, num_cands: int,
+                                            tw, f0, f1, ctx: PrimeCtx):
+    """`fused_rotate_hadamard_intt_ref` on `gathered_polys`."""
+    return fused_rotate_hadamard_intt_ref(
+        gathered_polys(g, prime, num_cands, tw.shape[0]), tw, f0, f1, ctx)
+
+
 def negacyclic_mul_ref(a, b, ctx: PrimeCtx):
     """Negacyclic a*b in Z_q[X]/(X^N+1) via the plain NTT."""
     return ntt_inv_ref(pointwise_mul_ref(ntt_fwd_ref(a, ctx),
@@ -101,4 +121,5 @@ def random_poly(rng: np.random.Generator, shape, q: int) -> np.ndarray:
 
 __all__ = ["ntt_fwd_ref", "ntt_inv_ref", "pointwise_mul_ref",
            "fused_rotate_hadamard_ref", "fused_rotate_hadamard_intt_ref",
+           "gathered_polys", "fused_rotate_hadamard_intt_gathered_ref",
            "negacyclic_mul_ref", "random_poly"]

@@ -24,7 +24,7 @@ def score_topk_cuda(queries: torch.Tensor, corpus: torch.Tensor, *, kk: int,
     vals, idx = ext.extension().score_topk(
         queries.to(torch.float32).contiguous(),
         corpus.to(torch.float32).contiguous(), kk, tile)
-    ext.count_launch("score_topk")
+    ext.count_launch("score_topk", (*queries.shape[:1], *corpus.shape, kk))
     return vals, idx
 
 

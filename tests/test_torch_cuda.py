@@ -9,16 +9,21 @@ This file imports torch and numpy only (no JAX), so it runs where the JAX
 package is not installed.
 """
 
+import os
+import subprocess
+import sys
+import threading
+import types
+
 import numpy as np
 import pytest
 import torch
-
-import threading
 
 from repro_torch.crypto import modring
 from repro_torch.crypto import rlwe
 from repro_torch.crypto.modring import PrimeCtx
 from repro_torch.kernels import ext
+from repro_torch.kernels.ntt import fused as kfused
 from repro_torch.kernels.ntt import ops as ntt_ops
 from repro_torch.kernels.ntt import ref as nref
 from repro_torch.kernels.scoretopk import ops as sops
@@ -119,6 +124,221 @@ def test_fused_rerank_kernel_bit_identical(cuda, bsz, num_ct, cpt, chunks, n):
         fused = ntt_ops.fused_rotate_hadamard_intt(*args, ctx)
         for staged, f in zip(got, fused):
             assert torch.equal(ntt_ops.ntt_inv(staged, ctx), f)
+
+
+def _gathered(rng, bsz, nc, chunks, ctxs, n, value=None):
+    """Gathered cache rows (B, nc, chunks, P, N): each prime's slice holds
+    residues of that prime (all ``value`` if given, e.g. q - 1)."""
+    g = np.empty((bsz, nc, chunks, len(ctxs), n), np.int32)
+    for i, c in enumerate(ctxs):
+        g[..., i, :] = (nref.random_poly(rng, (bsz, nc, chunks, n), c.q)
+                        if value is None else value(c))
+    return torch.from_numpy(g)
+
+
+def _query_rows(rng, ctx, cpt, bsz, chunks, n, value=None):
+    """tw (cpt, N), f0/f1 (B, chunks, N) residues of ctx's prime."""
+    def draw(shape):
+        if value is not None:
+            return torch.full(shape, value(ctx), dtype=torch.int32)
+        return torch.from_numpy(nref.random_poly(rng, shape, ctx.q))
+    return draw((cpt, n)), draw((bsz, chunks, n)), draw((bsz, chunks, n))
+
+
+# the main path's shapes (8 and 1 lanes, 41 result ciphertexts) at every N
+# the kernel has a network for, with num_cands not a multiple of cpt
+@pytest.mark.parametrize("n", [256, 1024, 4096, 16384])
+@pytest.mark.parametrize("cpt,chunks", [(c, k) for c in (1, 2, 4)
+                                        for k in (1, 2)])
+def test_fused_gathered_kernel_bit_identical(cuda, n, cpt, chunks):
+    """The fused kernel reading the gathered rows in place (strided, one
+    prime of P) against its plain version (pad + reshape + the plain fused
+    path), on every prime; the staged kernel + the standalone inverse NTT
+    equals it."""
+    rng = np.random.default_rng(n + 10 * cpt + chunks)
+    ctxs = _ctxs(n)
+    nc = 40 * cpt + 1                    # 41 result ciphertexts, ragged
+    for bsz in (8, 1):
+        g = _gathered(rng, bsz, nc, chunks, ctxs, n).to(cuda)
+        for i, ctx in enumerate(ctxs):
+            tw, f0, f1 = (t.to(cuda) for t in _query_rows(
+                rng, ctx, cpt, bsz, chunks, n))
+            want = nref.fused_rotate_hadamard_intt_gathered_ref(
+                g, i, nc, tw, f0, f1, ctx)
+            got = ntt_ops.fused_rotate_hadamard_intt_gathered(
+                g, i, nc, tw, modring.shoup_quotients(tw, ctx.q), f0, f1,
+                ctx)
+            assert got[0].shape == (bsz, 41, n)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            polys = nref.gathered_polys(g, i, nc, cpt)
+            staged = ntt_ops.fused_rotate_hadamard(polys, tw, f0, f1, ctx)
+            for s, w in zip(staged, want):
+                assert torch.equal(ntt_ops.ntt_inv(s, ctx), w)
+
+
+def test_fused_kernel_worst_raw_sum(cuda):
+    """Every residue q - 1: each term (q-1)^2 (q-1) mod q = q - 1, so the
+    reference's raw sum reaches rows * (q - 1), the most the binding admits
+    (< 2^31), and the kernel's slot sums their most, cpt * (q - 1)."""
+    n = 1024
+    ctxs = _ctxs(n)
+    q = max(c.q for c in ctxs)
+    cpt = 4
+    chunks = ((1 << 31) - 1) // (q - 1) // cpt     # rows * (q - 1) < 2^31
+    assert cpt * chunks * (q - 1) > (1 << 31) - 4 * (q - 1)
+    g = _gathered(None, 1, cpt, chunks, ctxs, n, value=lambda c: c.q - 1)
+    g = g.to(cuda)
+    for i, ctx in enumerate(ctxs):
+        tw, f0, f1 = (t.to(cuda) for t in _query_rows(
+            None, ctx, cpt, 1, chunks, n, value=lambda c: c.q - 1))
+        want = nref.fused_rotate_hadamard_intt_gathered_ref(
+            g, i, cpt, tw, f0, f1, ctx)
+        tws = modring.shoup_quotients(tw, ctx.q)
+        got = kfused.fused_rerank_intt_gathered_cuda(
+            g, i, cpt, tw, tws, f0, f1, ctx)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        staged = kfused.fused_rerank_cuda(
+            nref.gathered_polys(g, i, cpt, cpt), tw, tws, f0, f1, ctx)
+        acc = cpt * chunks * (ctx.q - 1) % ctx.q
+        assert bool((staged[0] == acc).all() and (staged[1] == acc).all())
+
+
+def test_gathered_call_copies_no_rows(cuda):
+    """The fused kernel reads g in place: one call allocates its two
+    outputs and nothing of g's size; `_scores_pipeline` (the serving
+    path) allocates its per-prime outputs and their stacks, and neither
+    the zero pad of the last ciphertext nor a per-prime copy of g."""
+    n, bsz, chunks, cpt, nc = 4096, 8, 2, 4, 161
+    rng = np.random.default_rng(3)
+    ctxs = [PrimeCtx.build(q, n) for q in modring.find_ntt_primes(2 * n, 3)]
+    g = _gathered(rng, bsz, nc, chunks, ctxs, n).to(cuda)
+    tw = torch.stack([_query_rows(rng, c, cpt, 1, 1, n)[0]
+                      for c in ctxs]).to(cuda)
+    cache = types.SimpleNamespace(
+        twiddles=tw, twiddles_shoup=modring.shoup_quotients(
+            tw, torch.tensor([c.q for c in ctxs], device=cuda).view(-1, 1, 1)))
+    f = [_query_rows(rng, ctxs[0], cpt, bsz, chunks, n)[1].to(cuda)
+         for _ in range(2)]
+    out_bytes = 2 * bsz * 41 * n * 4                # one call's pair
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = ntt_ops.fused_rotate_hadamard_intt_gathered(
+        g, 0, nc, tw[0], cache.twiddles_shoup[0], f[0], f[1], ctxs[0])
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= out_bytes + (1 << 20)
+    del got
+    c0 = torch.stack([torch.from_numpy(nref.random_poly(
+        rng, (bsz, chunks, n), c.q)) for c in ctxs], dim=2).to(cuda)
+    c1 = torch.stack([torch.from_numpy(nref.random_poly(
+        rng, (bsz, chunks, n), c.q)) for c in ctxs], dim=2).to(cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = rlwe._scores_pipeline(c0, c1, g, cache, ctxs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    # the outputs (3 pairs) and their stacks (3 pairs again) + 4 MiB: a pad
+    # copy of g (127 MB) or a per-prime copy (42 MB) would exceed it
+    assert peak <= 2 * 3 * out_bytes + (4 << 20)
+    want = [nref.fused_rotate_hadamard_intt_gathered_ref(
+        g, i, nc, tw[i], ntt_ops.ntt_fwd(c0[:, :, i], c),
+        ntt_ops.ntt_fwd(c1[:, :, i], c), c) for i, c in enumerate(ctxs)]
+    for z in range(2):
+        assert torch.equal(got[z], torch.stack([w[z] for w in want], dim=2))
+
+
+_BAD_CALLS = r"""
+import sys
+import torch
+from repro_torch.kernels import ext
+
+m = ext.extension()
+dev = torch.device("cuda")
+i32 = dict(dtype=torch.int32, device=dev)
+n, q, bar = 256, 7681, (1 << 64) // 7681
+x = torch.zeros((2, n), **i32)
+tab = torch.zeros((n,), **i32)
+g = torch.zeros((1, 5, 1, 3, n), **i32)
+tw = torch.zeros((2, n), **i32)
+f = torch.zeros((1, 1, n), **i32)
+polys = torch.zeros((1, 3, 2, n), **i32)
+# contiguous, but 4 bytes past a 16-byte boundary
+skew = torch.zeros((1 + polys.numel(),), **i32)[1:].view(polys.shape)
+tail = (1, 1, 1, 1)
+calls = {
+    "ntt dtype": lambda: m.ntt(x.float(), tab, tab, False, q, *tail),
+    "ntt table": lambda: m.ntt(x, tab[:7], tab, True, q, *tail),
+    "ntt device": lambda: m.ntt(x.cpu(), tab, tab, False, q, *tail),
+    "pointwise_mul shape": lambda: m.pointwise_mul(x, x[:1], q, bar),
+    "pointwise_mul modulus": lambda: m.pointwise_mul(x, x, 1 << 21, bar),
+    "fused_rerank_intt rows": lambda: m.fused_rerank_intt(
+        polys[:, :, :1].contiguous(), tw, tw, f, f, tab, tab, q, bar, *tail),
+    "fused_rerank_intt misaligned": lambda: m.fused_rerank_intt(
+        skew, tw, tw, f, f, tab, tab, q, bar, *tail),
+    "fused_rerank_intt wrap": lambda: m.fused_rerank_intt(
+        torch.zeros((1, 1, 2 * 300000, 4), **i32),
+        torch.zeros((2, 4), **i32), torch.zeros((2, 4), **i32),
+        torch.zeros((1, 300000, 4), **i32), torch.zeros((1, 300000, 4), **i32),
+        tab[:4], tab[:4], 786433, bar, *tail),
+    "fused_rerank_intt_gathered prime": lambda: m.fused_rerank_intt_gathered(
+        g, 3, 5, tw, tw, f, f, tab, tab, q, bar, *tail),
+    "fused_rerank_intt_gathered num_cands": lambda:
+        m.fused_rerank_intt_gathered(
+            g, 0, 6, tw, tw, f, f, tab, tab, q, bar, *tail),
+    "fused_rerank_intt_gathered stride": lambda: m.fused_rerank_intt_gathered(
+        torch.zeros((1, 5, 1, n, 3), **i32).transpose(3, 4), 0, 5, tw, tw,
+        f, f, tab, tab, q, bar, *tail),
+    "fused_rerank dims": lambda: m.fused_rerank(
+        polys[0], tw, tw, f, f, q, bar),
+    "fused_rerank query shape": lambda: m.fused_rerank(
+        polys, tw, tw, f[..., :128], f, q, bar),
+    "fused_rerank misaligned": lambda: m.fused_rerank(
+        skew, tw, tw, f, f, q, bar),
+    "score_topk kk": lambda: m.score_topk(
+        torch.zeros((2, 64), device=dev), torch.zeros((100, 64), device=dev),
+        300, 256),
+    "score_topk dims": lambda: m.score_topk(
+        torch.zeros((2, 64), device=dev), torch.zeros((100, 32), device=dev),
+        8, 256),
+}
+for name, call in calls.items():
+    try:
+        call()
+    except ValueError as e:
+        print("ValueError", name, "|", e, flush=True)
+    else:
+        print("no error", name, flush=True)
+        sys.exit(1)
+"""
+
+
+def test_binding_argument_errors_raise_value_error(cuda, tmp_path):
+    """Every binding refuses a wrong shape, dtype, device or value with a
+    ValueError whose message carries the numbers and shapes.  The calls
+    run in a subprocess, so a crash while formatting a message fails this
+    test instead of killing the test process."""
+    ext.extension()                 # build here; the subprocess loads it
+    script = tmp_path / "bad_calls.py"
+    script.write_text(_BAD_CALLS)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ext.CSRC.parents[1])] + sys.path))
+    r = subprocess.run([sys.executable, str(script)], capture_output=True,
+                       text=True, env=env, timeout=600)
+    assert r.returncode == 0, (r.returncode, r.stdout[-2000:],
+                               r.stderr[-2000:])
+    lines = r.stdout.splitlines()
+    assert len(lines) == _BAD_CALLS.count('": lambda')
+    assert all(line.startswith("ValueError") for line in lines)
+    text = r.stdout
+    for needle in ("(1, 5, 1, 3, 256)", "(2, 256) vs (1, 256)", "kk=300",
+                   "2097152", "600000 rows", "num_cands 6", "prime 3",
+                   "strides (3840, 768, 768, 1, 3)", "table has 7 entries",
+                   "got a cpu tensor", "got shape (3, 2, 256)",
+                   "with cpt 2 and chunks 1", "polys must have unit stride",
+                   "16-byte aligned"):
+        assert needle in text, (needle, text)
 
 
 def _tie_rows(rng, e, q, kk, tile):

@@ -160,6 +160,62 @@ def test_fused_rerank_matches_reference(bsz, num_ct, cpt, chunks, pi):
         assert torch.equal(ops.ntt_inv(g, ctx), f)
 
 
+# gathered cache rows (B, nc, chunks, P, N) as the caches' gathers return
+# them, as (cpt, chunks, nc): the last result ciphertext full (pad 0) or
+# with 1 or 3 empty slots, one and two chunks
+GATHERED = [(2, 1, 6), (2, 1, 5), (1, 2, 3), (4, 2, 5)]
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+@pytest.mark.parametrize("cpt,chunks,nc", GATHERED)
+def test_fused_gathered_matches_padded_path_and_pallas(n, cpt, chunks, nc):
+    """The gathered entry's plain branch (the CPU path of the serving
+    pipeline) equals, on every prime, the zero pad + per-prime reshape +
+    `fused_rotate_hadamard_intt` path it replaces, and the reference's
+    `fused_rerank_intt_pallas` (interpret mode) on the padded rows."""
+    qs = modring.find_ntt_primes(2 * n, 3)
+    bsz = 2
+    g = np.stack([_polys(20 + i, (bsz, nc, chunks, n), q)
+                  for i, q in enumerate(qs)], axis=3)
+    pad = -(-nc // cpt) * cpt - nc
+    padded = np.concatenate(
+        [g, np.zeros((bsz, pad) + g.shape[2:], np.int32)], axis=1)
+    num_ct = padded.shape[1] // cpt
+    assert num_ct == -(-nc // cpt)
+    for i, q in enumerate(qs):
+        ctx, jctx = PrimeCtx.build(q, n), jmod.PrimeCtx.build(q, n)
+        tw, f0, f1 = (_polys(30 + i, (cpt, n), q),
+                      _polys(40 + i, (bsz, chunks, n), q),
+                      _polys(50 + i, (bsz, chunks, n), q))
+        tw_t = torch.from_numpy(tw)
+        got = ops.fused_rotate_hadamard_intt_gathered(
+            torch.from_numpy(g), i, nc, tw_t,
+            modring.shoup_quotients(tw_t, q),
+            *map(torch.from_numpy, (f0, f1)), ctx)
+        polys = np.ascontiguousarray(padded[..., i, :]).reshape(
+            bsz, num_ct, cpt * chunks, n)
+        old = ops.fused_rotate_hadamard_intt(
+            *map(torch.from_numpy, (polys, tw, f0, f1)), ctx)
+        want = jfused.fused_rerank_intt_pallas(
+            *map(jnp.asarray, (polys, tw, f0, f1)), jctx, interpret=True)
+        for gz, oz, wz in zip(got, old, want):
+            assert gz.shape == (bsz, num_ct, n)
+            assert torch.equal(gz, oz)
+            np.testing.assert_array_equal(gz.numpy(), np.asarray(wz))
+
+
+def test_gathered_polys_drops_and_pads():
+    """`gathered_polys`: candidates past num_cands dropped, the last
+    ciphertext's empty slots zero, slot-major (cand, chunk) rows."""
+    g = torch.arange(2 * 6 * 2 * 3 * 4, dtype=torch.int32).reshape(
+        2, 6, 2, 3, 4)
+    rows = ref.gathered_polys(g, 1, 5, 2)
+    assert rows.shape == (2, 3, 4, 4)
+    assert torch.equal(rows[:, :2].reshape(2, 4, 2, 4), g[:, :4, :, 1])
+    assert torch.equal(rows[:, 2, :2], g[:, 4, :, 1])
+    assert not bool(rows[:, 2, 2:].any())
+
+
 def test_fused_accumulator_overflow_is_refused():
     n = 1024
     q = modring.find_ntt_primes(2 * n, 1)[0]
@@ -182,6 +238,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         tntt.pointwise_mul_cuda(x, x, ctx)
     with pytest.raises(ValueError):
-        tfused.fused_rerank_intt_cuda(x[None, None], x, x[None], x[None], ctx)
+        tfused.fused_rerank_intt_cuda(x[None, None], x, x, x[None], x[None],
+                                      ctx)
     with pytest.raises(ValueError):
-        tfused.fused_rerank_cuda(x[None, None], x, x[None], x[None], ctx)
+        tfused.fused_rerank_cuda(x[None, None], x, x, x[None], x[None], ctx)
+    g = torch.zeros((1, 1, 1, 1, n), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tfused.fused_rerank_intt_gathered_cuda(g, 0, 1, x, x, x[None],
+                                               x[None], ctx)

@@ -84,6 +84,28 @@ def test_cache_pool_bit_exact(setup):
     assert tcache.nbytes == jcache.nbytes
 
 
+def test_cache_twiddles_shoup_table(setup):
+    """The caches carry the Shoup quotients floor(w * 2^32 / q) of their
+    slot twiddles (the fused kernel's rotate), built once per cache on
+    first use, and equal on every sharded or dense re-view."""
+    _, docs, _, jcache, tcache, _, _ = setup
+    tw = tcache.twiddles.numpy()
+    got = tcache.twiddles_shoup
+    assert got.dtype == torch.int32 and got.shape == tw.shape
+    for p, q in enumerate(TP.primes):
+        want = [[(int(w) << 32) // q for w in row] for row in tw[p]]
+        assert got[p].numpy().view(np.uint32).tolist() == want
+    sharded = tr.shard_candidate_cache(tcache, tr.CandidateCacheConfig(
+        num_shards=2, async_admission=False))
+    assert tcache.twiddles_shoup is got
+    assert torch.equal(sharded.twiddles_shoup, got)
+    assert torch.equal(tr.densify_candidate_cache(sharded).twiddles_shoup, got)
+    conv = convert.candidate_cache(TP, np.asarray(jcache.polys),
+                                   np.asarray(jcache.twiddles), docs.shape[1],
+                                   device="cpu")
+    assert torch.equal(conv.twiddles_shoup, got)
+
+
 def test_single_query_paths(setup, keys):
     n_dim, docs, queries, _, tcache, _, tcts = setup
     _, tsk = keys
