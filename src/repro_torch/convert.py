@@ -14,16 +14,40 @@ import torch
 
 from repro_torch.crypto import rlwe
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.retrieval.index import FlatIndex
+from repro_torch.retrieval.index import ClusterMap, FlatIndex
+
+
+def cluster_map(centroids: np.ndarray, starts: np.ndarray,
+                stops: np.ndarray) -> ClusterMap:
+    """A cluster map from ``ClusterMap.centroids`` (C, n), ``.starts`` and
+    ``.stops`` (C,) of the reference, copied."""
+    return ClusterMap(centroids=np.array(centroids, np.float32),
+                      starts=np.array(starts, np.int64),
+                      stops=np.array(stops, np.int64))
 
 
 def flat_index(embeddings: np.ndarray,
                documents: Optional[Sequence[bytes]] = None, *,
+               cluster_map: Optional[ClusterMap] = None,
+               epoch_rows: Optional[Sequence[int]] = None,
                device: DeviceLike = None) -> FlatIndex:
-    """An index over already-normalized embedding rows (``FlatIndex``'s
-    ``embeddings``) and its documents, as they are."""
-    return FlatIndex.build(embeddings, documents=documents, normalize=False,
-                           device=device)
+    """An index over already-normalized (and, for an IVF index, already
+    permuted) embedding rows (``FlatIndex``'s ``embeddings``) and its
+    documents, as they are.  ``cluster_map`` carries the reference's IVF
+    layout (see `cluster_map`); ``epoch_rows`` the row count visible at
+    each epoch, 0 first (the reference's ``_epoch_rows``), so views of
+    earlier epochs cut the same rows and clusters."""
+    index = FlatIndex.build(embeddings, documents=documents, normalize=False,
+                            device=device)
+    index.cluster_map = cluster_map
+    if epoch_rows is not None:
+        rows = [int(r) for r in epoch_rows]
+        if rows[-1] != index.num_rows or rows != sorted(rows):
+            raise ValueError(f"epoch rows {rows} do not end at the index's "
+                             f"{index.num_rows} rows")
+        index._epoch_rows = rows
+        index._epoch = len(rows) - 1
+    return index
 
 
 def candidate_cache(params: rlwe.RlweParams, polys: np.ndarray,
@@ -72,5 +96,5 @@ def secret_key(params: rlwe.RlweParams, s: np.ndarray, s_ntt: np.ndarray, *,
         s_ntt=torch.from_numpy(np.asarray(s_ntt, np.int32)).to(dev))
 
 
-__all__ = ["flat_index", "candidate_cache", "sharded_candidate_cache",
+__all__ = ["cluster_map", "flat_index", "candidate_cache", "sharded_candidate_cache",
            "secret_key"]

@@ -454,11 +454,13 @@ def _check_cache_compatible(cache, params: RlweParams, n_dim=None) -> None:
 
 
 def _pack_corpus_ntt(params: RlweParams, emb: torch.Tensor, *,
-                     host: bool = False):
+                     host: bool = False, ntt_fwd=None):
     """The corpus half of negacyclic packing: every document's chunks
     reverse-packed at slot 0 and forward-NTT'd per prime, (num_docs,
     chunks, P, N) int32 — a tensor on ``emb``'s device, or with ``host``
-    a host numpy pool (the sharded cache's backing store).
+    a host numpy pool (the sharded cache's backing store).  ``ntt_fwd``
+    (default `ntt_ops.ntt_fwd`: the kernel on the card) lets a check run
+    the same packing through the NTT's plain version on the card.
 
     The reference packs the whole corpus on the host and copies it over;
     at 10^6 documents the pool is ~49 GB, so here the same arithmetic
@@ -482,8 +484,9 @@ def _pack_corpus_ntt(params: RlweParams, emb: torch.Tensor, *,
             seg = ints[:, c * params.chunk:(c + 1) * params.chunk]
             # p[chunk - 1 - j] = seg[j]
             polys[:, c, params.chunk - seg.shape[1]:params.chunk] = seg.flip(-1)
+        fwd = ntt_ops.ntt_fwd if ntt_fwd is None else ntt_fwd
         blk = torch.stack([
-            ntt_ops.ntt_fwd(torch.remainder(polys, ctx.q).to(torch.int32), ctx)
+            fwd(torch.remainder(polys, ctx.q).to(torch.int32), ctx)
             for ctx in params.ctxs], dim=2)                # (b, chunks, P, N)
         pool[lo:lo + ints.shape[0]].copy_(blk)
     return out
@@ -590,8 +593,10 @@ class ShardedCandidateCache:
     """Capacity-aware sharded view of the NTT-domain candidate pool.
 
     The per-document plaintexts live in a flat host pool (pageable numpy)
-    partitioned into contiguous document shards: document d maps to shard
-    ``d // shard_docs``, local row ``d % shard_docs``.  The device (the
+    partitioned into contiguous document shards: shard s owns documents
+    ``[starts[s], starts[s + 1])`` of a boundary table that is uniform
+    (``d // shard_docs``) at build and grows by one ragged tail shard per
+    `ingest_tail`; earlier boundaries never move.  The device (the
     twiddles' device) holds only an LRU set of pinned hot shards bounded by
     ``max_resident_bytes`` and the per-request gather buffer of the k'
     selected rows (`index_select` from a resident shard, or a host row
@@ -614,6 +619,11 @@ class ShardedCandidateCache:
     first-touch LRU whose traces the determinism tests replay.
     ``hits``/``misses`` count shard-group lookups (one per distinct shard
     touched by a gather), not documents.
+
+    Streaming ingestion (`ingest_tail`) publishes a packed tail shard under
+    the lock in one step, so a concurrent gather sees the shard table
+    before it or after it, never between, and enqueues the tail to the
+    same admitter.
     """
     params: RlweParams
     twiddles: torch.Tensor         # (P, cpt, N) — same as the dense cache
@@ -625,7 +635,7 @@ class ShardedCandidateCache:
     shard_docs: int
     pool: np.ndarray               # host (num_docs, chunks, P, N) backing store
     shards: list                   # views into ``pool``, <= shard_docs docs each
-    epoch: int = 0                 # corpus epoch the pool was packed at
+    epoch: int = 0                 # corpus epoch (bumped by `ingest_tail`)
     max_resident_bytes: Optional[int] = None
     pin_on_access: bool = True
     async_admission: bool = True
@@ -646,6 +656,7 @@ class ShardedCandidateCache:
     admit_dropped: int = 0         # admission requests dropped (queue full)
     policy_deferrals: int = 0      # touches below admit_threshold (no admit)
     admit_failures: int = 0        # admitter copies that raised (dropped)
+    ingests: int = 0               # tail shards appended since build
 
     @functools.cached_property
     def twiddles_shoup(self) -> torch.Tensor:
@@ -665,6 +676,10 @@ class ShardedCandidateCache:
         self._worker: Optional[threading.Thread] = None
         self._side_stream = None          # the admitter's CUDA stream
         self._admit_hook = None           # test seam: called(s) pre-copy
+        self._ingest_hook = None          # test seam: called(self) pre-publish
+        # shard boundary table: shard s owns docs [starts[s], starts[s+1])
+        self._starts = np.cumsum(
+            [0] + [sh.shape[0] for sh in self.shards])[:-1]
         # telemetry sink, re-bound by the serving engine every dispatch
         self.tracer = obs.NULL_TRACER
         self._trace_batch: Optional[int] = None
@@ -689,7 +704,14 @@ class ShardedCandidateCache:
         return sum(s.nbytes for s in self.shards)
 
     def host_pool(self) -> np.ndarray:
-        return self.pool
+        """The whole packed pool, ingested tail shards included: the
+        backing array while the cache never grew, else one concatenated
+        copy (re-view and densify only; requests read per shard)."""
+        with self._lock:
+            shards = list(self.shards)
+        if self.pool.shape[0] == sum(sh.shape[0] for sh in shards):
+            return self.pool
+        return np.concatenate(shards, axis=0)
 
     def _resident_bytes_locked(self) -> int:
         return sum(v.numel() * 4 for v in self._resident.values())
@@ -727,24 +749,30 @@ class ShardedCandidateCache:
                 "policy_deferrals": self.policy_deferrals,
                 "admit_failures": self.admit_failures,
                 "pending_admissions": pending,
-                "epoch": self.epoch}
+                "epoch": self.epoch,
+                "ingests": self.ingests}
 
     def check_compatible(self, params: RlweParams, n_dim=None) -> None:
         _check_cache_compatible(self, params, n_dim)
 
     def shard_of(self, doc_id: int) -> int:
-        return int(doc_id) // self.shard_docs
+        return int(np.searchsorted(self._starts, int(doc_id),
+                                   side="right")) - 1
 
-    def _shard_ids(self, flat: np.ndarray) -> np.ndarray:
+    def _shard_ids(self, flat: np.ndarray, starts=None) -> np.ndarray:
         """Validated document ids -> shard ids (shared by `gather` and
-        `prefetch`)."""
-        if flat.size and (flat.min() < 0 or flat.max() >= self.num_docs):
+        `prefetch`), by the boundary table ``starts`` (default: the current
+        one): ``flat // shard_docs`` for the uniform build layout, and
+        still right for ragged tail shards."""
+        starts = self._starts if starts is None else starts
+        num_docs = self.num_docs
+        if flat.size and (flat.min() < 0 or flat.max() >= num_docs):
             # negative ids would alias shards[-1] via Python indexing and
             # silently gather the wrong document; fail loudly instead
             raise IndexError(
-                f"candidate ids must be in [0, {self.num_docs}); got "
+                f"candidate ids must be in [0, {num_docs}); got "
                 f"[{flat.min()}, {flat.max()}]")
-        return flat // self.shard_docs
+        return np.searchsorted(starts, flat, side="right") - 1
 
     def pin(self, shard_id: int) -> None:
         """Explicitly admit a shard to device residency (LRU position =
@@ -937,6 +965,57 @@ class ShardedCandidateCache:
         worker)."""
         self.flush(timeout)
 
+    def ingest_tail(self, rows: np.ndarray, *, epoch: int) -> None:
+        """Streaming ingestion: append newly packed documents as a tail
+        shard and stamp the cache with the new corpus ``epoch``.
+
+        ``rows`` is the host `_pack_corpus_ntt` output for the new
+        documents, complete before this call (as the admitter's staged
+        copy is), so the publish under the lock is a list append and a new
+        boundary table: a concurrent `gather` sees the shard table before
+        the ingest or after it, never half of it.  Ids below the previous
+        ``num_docs`` keep their shard (the table only grows), which is what
+        keeps a fixed-epoch replay bit-identical while ingestion runs.  The
+        tail shard then rides the existing admission path: enqueued to the
+        background admitter (within the budget and the queue bound); until
+        its swap, gathers stream its rows from the host."""
+        rows = np.ascontiguousarray(rows, np.int32)
+        want = (self.num_chunks, self.params.num_primes, self.params.n_poly)
+        if rows.ndim != 4 or rows.shape[1:] != want:
+            raise ValueError(
+                f"tail shard rows must be (m, {want[0]}, {want[1]}, "
+                f"{want[2]}), got {rows.shape}")
+        if rows.shape[0] == 0:
+            return
+        hook = self._ingest_hook    # test seam: interleave pre-publish
+        if hook is not None:
+            hook(self)
+        with self._cv:
+            if epoch <= self.epoch:
+                raise ValueError(
+                    f"stale ingest epoch {epoch} (cache is at "
+                    f"{self.epoch})")
+            s = len(self.shards)
+            self.shards.append(rows)
+            self._starts = np.append(self._starts, self.num_docs)
+            self.num_docs += rows.shape[0]
+            self.epoch = epoch
+            self.ingests += 1
+            # warm the tail through the normal admission machinery
+            if (self.pin_on_access and self.async_admission
+                    and self.max_resident_bytes != 0
+                    and self._fits_budget(s)
+                    and len(self._queue) < self.max_pending_admissions):
+                self._inflight.add(s)
+                self._queue.append((s, self._trace_batch))
+                self.admit_enqueued += 1
+                if self._worker is None:
+                    self._worker = threading.Thread(
+                        target=self._admit_worker, name="shard-admitter",
+                        daemon=True)
+                    self._worker.start()
+            self._cv.notify_all()
+
     def _host_rows(self, s: int, loc: np.ndarray) -> torch.Tensor:
         """Rows ``loc`` of non-resident shard ``s``, on the cache's device:
         a host row gather into a pinned buffer, then one copy to the card
@@ -969,8 +1048,9 @@ class ShardedCandidateCache:
         t0 = tracer.clock() if tracer.enabled else 0.0
         h0, m0, g0 = self.hits, self.misses, self.gathered_bytes
         flat = ids.reshape(-1).astype(np.int64)
-        shard_ids = self._shard_ids(flat)
-        local = flat - shard_ids * self.shard_docs
+        starts = self._starts     # one table: ingest_tail swaps it whole
+        shard_ids = self._shard_ids(flat, starts)
+        local = flat - starts[shard_ids]
         order = np.argsort(shard_ids, kind="stable")      # group by shard
         uniq, starts = np.unique(shard_ids[order], return_index=True)
         bounds = np.append(starts, order.size)

@@ -1,10 +1,17 @@
 """Plain PyTorch version of the fused score + per-tile top-k kernel.
 
 Scores are inner products (cosine similarity for unit-norm rows), in
-float32 as the kernel and the TPU kernel compute them: one float32 matrix
-product, never TF32 (the port leaves ``allow_tf32`` off).  Its summation
-order is the BLAS library's, so it agrees with the kernel to float32
-rounding.  Ties break toward the lower row id, as ``jax.lax.top_k`` does;
+float32 as the kernel and the TPU kernel compute them, never TF32.  Each
+score is an elementwise product summed over the embedding dim, so its bits
+depend on the query row and the corpus row alone: a row slice, a cluster,
+a subset of the queries or another tile start scores every (query, row)
+pair exactly as the whole corpus does, and per-slice scans merged by
+(score desc, id asc) equal the flat scan bit for bit (the replica router's
+and IVF's contract).  A BLAS matrix product does not give that: its
+blocking, hence the summation order of one entry, follows the matrix it
+sits in.  The summation order differs from the kernel's, so the two agree
+to float32 rounding.  Ties break toward the lower row id, as
+``jax.lax.top_k`` does;
 ``torch.topk`` promises no tie order, so every selection here is a stable
 descending sort over id-ordered columns.
 """
@@ -14,9 +21,23 @@ from __future__ import annotations
 import torch
 
 
+# elements of one row block's (B, rows, n) product: 256 MB blocks keep the
+# launches on the card to a few per 10^8 products
+_BLOCK_ELEMS = 1 << 26
+
+
 def score_ref(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
-    """(B, n) x (N, n) -> (B, N) float32 inner-product scores."""
-    return queries.to(torch.float32) @ corpus.to(torch.float32).T
+    """(B, n) x (N, n) -> (B, N) float32 inner-product scores, each a
+    function of its (query, row) pair alone (see the module docstring); the
+    products are formed in row blocks of at most 2^26 elements."""
+    q = queries.to(torch.float32)
+    c = corpus.to(torch.float32)
+    b, n = q.shape
+    rows = max(1, _BLOCK_ELEMS // max(1, b * n))
+    out = torch.empty((b, c.shape[0]), dtype=torch.float32, device=c.device)
+    for lo in range(0, c.shape[0], rows):
+        out[:, lo:lo + rows] = (q[:, None, :] * c[None, lo:lo + rows]).sum(-1)
+    return out
 
 
 def _select(scores: torch.Tensor, k: int) -> tuple:

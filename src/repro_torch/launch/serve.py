@@ -12,14 +12,21 @@ line.
 `... --device cpu` runs the plain PyTorch path on the CPU (the default is
 ``cuda``, which launches the port's CUDA kernels).
 `... --no-batch` runs the sequential one-query-at-a-time comparison path.
+`... --replicas N` serves through the scale-out `ReplicaRouter` (N engine
+replicas over contiguous corpus slices, scatter-gather top-k'; results
+bit-identical to one engine) and prints the router summary.
+`... --corpus clustered --ivf-clusters C --nprobe N|auto` builds the IVF
+first stage (k-means at build, cluster-contiguous rows) and scans N
+clusters per query (`auto`: the planner-derived bound, `plan_nprobe`).
+`... --ingest D` ingests D new documents after the first wave (tail-shard
+append, epoch advance), refreshes (or, with replicas, re-plans) and serves
+the stream again at the new epoch.
 `... --trace-out trace.json` enables stage-level span tracing and writes a
 Chrome-trace timeline loadable at https://ui.perfetto.dev.
 
 Admission control (off unless one of these is set): `--tenant-rate R`,
 `--max-queue N`, `--deadline-ms MS`, `--priority CLASS`, as in the
-reference.  Not yet ported (ROADMAP queue 1 item 8): `--replicas > 1`,
-`--ivf-clusters`, `--nprobe` and `--ingest` raise.  The clustered corpus
-is not ported either; the corpus is uniform on the sphere.
+reference.
 """
 
 from __future__ import annotations
@@ -34,13 +41,13 @@ import torch
 from repro_torch.crypto import backend as crypto_backend
 from repro_torch.data import synth
 from repro_torch.device import resolve_device
-from repro_torch.retrieval.index import FlatIndex
+from repro_torch.retrieval.index import FlatIndex, IvfConfig
+from repro_torch.retrieval.topk import plan_nprobe
 from repro_torch.serve import (AdmissionConfig, AdmissionError, EngineConfig,
-                               RateLimited, ServeEngine)
+                               RateLimited, ReplicaRouter, RouterConfig,
+                               ServeEngine)
 from repro_torch.serve.admission import PRIORITIES
-from repro_torch.serve.session import SessionManager
-
-NOT_PORTED = "not yet ported (ROADMAP queue 1 item 8)"
+from repro_torch.serve.session import PlanCache, SessionManager
 
 
 def main(argv=None) -> None:
@@ -57,18 +64,32 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the CUDA kernels) or cpu (the "
                          "plain PyTorch path)")
+    ap.add_argument("--corpus", choices=("uniform", "clustered"),
+                    default="uniform")
     ap.add_argument("--ivf-clusters", type=int, default=None, metavar="C",
-                    help=f"IVF first-stage routing: {NOT_PORTED}")
+                    help="build the index with C-cluster IVF first-stage "
+                         "routing (k-means at build, cluster-aligned row "
+                         "layout); replica slices then land on cluster "
+                         "boundaries")
     ap.add_argument("--nprobe", default=None, metavar="N|auto",
-                    help=f"IVF probe count: {NOT_PORTED}")
+                    help="clusters scanned per query (needs "
+                         "--ivf-clusters): an integer, or 'auto' for the "
+                         "planner-derived Theorem-1 bound (plan_nprobe on "
+                         "the session plan's k'); N >= C is bit-identical "
+                         "to the flat scan")
     ap.add_argument("--ingest", type=int, default=None, metavar="D",
-                    help=f"streaming ingestion: {NOT_PORTED}")
+                    help="after the first wave, ingest D new docs (tail-"
+                         "shard append, epoch advance), refresh/replan, "
+                         "and serve the stream again at the new epoch")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-wait-ms", type=float, default=20.0)
     ap.add_argument("--no-batch", action="store_true",
                     help="sequential comparison path (one query per step)")
     ap.add_argument("--replicas", type=int, default=1, metavar="N",
-                    help=f"N > 1 (the replica router): {NOT_PORTED}")
+                    help="N > 1 serves through a ReplicaRouter: N engine "
+                         "replicas over contiguous corpus slices with "
+                         "scatter-gather top-k' (bit-identical to N=1); "
+                         "prints the router summary")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="enable stage tracing and write a Perfetto-"
                          "loadable Chrome-trace JSON timeline to PATH")
@@ -87,12 +108,12 @@ def main(argv=None) -> None:
         ap.error("--tenants and --requests must be >= 1")
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
-    for flag, unported in (("--replicas > 1", args.replicas > 1),
-                           ("--ivf-clusters", args.ivf_clusters is not None),
-                           ("--nprobe", args.nprobe is not None),
-                           ("--ingest", args.ingest is not None)):
-        if unported:
-            raise NotImplementedError(f"{flag}: {NOT_PORTED}")
+    if args.replicas > 1 and args.no_batch:
+        ap.error("--replicas > 1 is the batched path; drop --no-batch")
+    if args.ivf_clusters is not None and args.ivf_clusters < 1:
+        ap.error("--ivf-clusters must be >= 1")
+    if args.nprobe is not None and args.ivf_clusters is None:
+        ap.error("--nprobe needs --ivf-clusters")
     crypto_backend.get_backend(args.backend)    # raises UnknownBackend
     device = resolve_device(args.device)
     print(json.dumps({"device": {
@@ -101,10 +122,31 @@ def main(argv=None) -> None:
                  if device.type == "cuda" else "cpu")}}))
 
     rng = np.random.default_rng(0)
-    emb = synth.uniform_corpus(rng, args.n_docs, args.dim)
+    gen = (synth.uniform_corpus if args.corpus == "uniform"
+           else synth.clustered_corpus)
+    emb = gen(rng, args.n_docs, args.dim)
     docs = synth.passages(rng, args.n_docs, avg_bytes=256)
-    index = FlatIndex.build(emb, documents=docs, device=device)
+    ivf = (IvfConfig(num_clusters=args.ivf_clusters)
+           if args.ivf_clusters is not None else None)
+    index = FlatIndex.build(emb, documents=docs, ivf=ivf, device=device)
+    # IVF builds permute rows into cluster-contiguous order, so result ids
+    # live in the index's row space: score recall against that
     emb = index.embeddings.cpu().numpy()
+
+    nprobe = None
+    if args.nprobe is not None:
+        if args.nprobe == "auto":
+            # the Theorem-1 probe bound for this session shape: enough
+            # clusters that the planned k'-row search range is covered
+            plan = PlanCache().get(n=args.dim, N=args.n_docs, k=args.k,
+                                   radius=args.radius)
+            nprobe = plan_nprobe(index.cluster_map, plan.kprime)
+        else:
+            nprobe = int(args.nprobe)
+    if ivf is not None:
+        print(json.dumps({"ivf": {
+            "clusters": index.cluster_map.num_clusters,
+            "nprobe": nprobe if nprobe is not None else "all"}}))
 
     admission = None
     if (args.tenant_rate is not None or args.max_queue is not None
@@ -120,11 +162,18 @@ def main(argv=None) -> None:
         max_wait_s=args.max_wait_ms / 1e3,
         sequential=args.no_batch,
         trace=args.trace_out is not None,
-        admission=admission)
+        admission=admission,
+        nprobe=nprobe)
     # context manager: close() drains leftovers and joins the sharded
-    # cache's admitter and the retry lane (no thread outlives the engine)
-    with ServeEngine(index, config=ecfg,
-                     sessions=SessionManager(device=device)) as engine:
+    # cache's admitter and the retry lane (no thread outlives the engine);
+    # the router also stops its per-replica worker pools
+    sessions = SessionManager(device=device)
+    service = (ReplicaRouter(index, config=RouterConfig(
+                   num_replicas=args.replicas, engine=ecfg),
+                   sessions=sessions)
+               if args.replicas > 1 else
+               ServeEngine(index, config=ecfg, sessions=sessions))
+    with service as engine:
         for t in range(args.tenants):
             sess = engine.open_session(f"tenant-{t}", n=args.dim,
                                        N=args.n_docs, k=args.k,
@@ -183,21 +232,70 @@ def main(argv=None) -> None:
                 "batch_size": res.batch_size, "recall": recall,
                 "wire_bytes": res.transcript.total_bytes,
                 "path": res.transcript.path}))
-        summary = engine.metrics.summary()
-        summary["aggregate"]["qps"] = round(len(results) / wall, 3)
-        occupancy = engine.metrics.occupancy(engine.config.max_batch)
-        out = {"summary": summary["aggregate"],
-               "num_batches": summary["num_batches"],
-               "occupancy": None if occupancy is None
-               else round(occupancy, 3)}
-        if "failures" in summary:
-            out["failures"] = summary["failures"]
-        if "admission" in summary:
-            out["admission"] = dict(summary["admission"],
-                                    rejected_submits=rejected)
-        if "trace" in summary:
-            out["stages"] = summary["trace"]["stages"]
-        print(json.dumps(out))
+        if args.replicas > 1:
+            fleet = engine.summary()
+            fleet["router"]["qps"] = round(len(results) / wall, 3)
+            print(json.dumps(fleet))
+        else:
+            summary = engine.metrics.summary()
+            summary["aggregate"]["qps"] = round(len(results) / wall, 3)
+            occupancy = engine.metrics.occupancy(engine.config.max_batch)
+            out = {"summary": summary["aggregate"],
+                   "num_batches": summary["num_batches"],
+                   "occupancy": None if occupancy is None
+                   else round(occupancy, 3)}
+            if "failures" in summary:
+                out["failures"] = summary["failures"]
+            if "admission" in summary:
+                out["admission"] = dict(summary["admission"],
+                                        rejected_submits=rejected)
+            if "trace" in summary:
+                out["stages"] = summary["trace"]["stages"]
+            print(json.dumps(out))
+        if args.ingest is not None and args.ingest >= 1:
+            # streaming ingestion: tail-shard append + epoch advance while
+            # the service stays up, then the same stream at the new epoch
+            rng2 = np.random.default_rng(1)
+            new_emb = gen(rng2, args.ingest, args.dim)
+            new_docs = synth.passages(rng2, args.ingest, avg_bytes=256)
+            t0 = time.monotonic()
+            view = index.ingest(new_emb, documents=new_docs)
+            spans = (engine.replan() if args.replicas > 1
+                     else (engine.refresh_corpus() and None))
+            ingest_ms = (time.monotonic() - t0) * 1e3
+            print(json.dumps({"ingest": {
+                "docs": args.ingest, "epoch": view.epoch,
+                "num_rows": index.num_rows,
+                "ingest_ms": round(ingest_ms, 1),
+                "replanned_slices": spans}}))
+            grown = index.embeddings.cpu().numpy()
+            for t in range(args.tenants):   # re-plan sessions for the
+                engine.open_session(        # grown corpus + new epoch
+                    f"tenant-{t}@e{view.epoch}", n=args.dim,
+                    N=index.num_rows, k=args.k, radius=args.radius,
+                    backend=args.backend)
+            rid_to_query = {}
+            for i, q in enumerate(queries):
+                rid = engine.submit(
+                    f"tenant-{i % args.tenants}@e{view.epoch}", q,
+                    key=10_000 + i)
+                rid_to_query[rid] = q
+            for res in engine.drain():
+                if not res.ok:
+                    print(json.dumps({
+                        "request": res.request_id, "tenant": res.tenant,
+                        "epoch": view.epoch, "error": res.error}))
+                    continue
+                q = rid_to_query[res.request_id]
+                plain = np.argsort(-(grown @ q), kind="stable")[: args.k]
+                recall = (len(set(res.ids.tolist()) & set(plain.tolist()))
+                          / args.k)
+                print(json.dumps({
+                    "request": res.request_id, "tenant": res.tenant,
+                    "epoch": view.epoch,
+                    "latency_s": round(res.latency_s, 3),
+                    "recall": recall,
+                    "wire_bytes": res.transcript.total_bytes}))
         if args.trace_out is not None:
             n_events = engine.write_trace(args.trace_out)
             print(json.dumps({"trace_out": args.trace_out,

@@ -1,7 +1,6 @@
 """Batched multi-tenant serving engine for the RemoteRAG protocol (PyTorch).
 
-Counterpart of ``repro/serve`` without the scale-out router (ROADMAP queue
-1 item 8).  Layers (bottom up):
+Counterpart of ``repro/serve``.  Layers (bottom up):
 
   batching.py   stacked-batch primitives: DistanceDP perturbation,
                 batched score-top-k' over the pinned corpus view, batched
@@ -13,10 +12,16 @@ Counterpart of ``repro/serve`` without the scale-out router (ROADMAP queue
                 triggers, batched and sequential dispatch, lane-level
                 fault isolation with a background retry lane.
   metrics.py    per-tenant latency percentiles + wire-byte accounting.
+  router.py     scale-out tier: `ReplicaRouter` over N slice-owning engine
+                replicas — tenant-hash placement, scatter-gather top-k'
+                with a deterministic merge, per-replica admitters, and
+                replica quarantine with ledger-backed zero-lost results.
 
 The batched path is bit-compatible with the one-query `run_remoterag`
 round, and with the reference engine given the same perturbed inputs:
-identical docs, ids and wire bytes (tests/test_torch_engine.py).
+identical docs, ids and wire bytes (tests/test_torch_engine.py); the
+router is bit-compatible with a single whole-corpus engine at any replica
+count (tests/test_torch_router.py).
 """
 
 from repro_torch.serve.admission import (
@@ -33,6 +38,13 @@ from repro_torch.serve.batching import (CandidateCacheConfig,
                                         ShardedCandidateCache)
 from repro_torch.serve.engine import EngineConfig, ServeEngine, ServeResult
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.router import (
+    ReplicaRouter,
+    ReplicaUnavailable,
+    RouterConfig,
+    RouterMetrics,
+    merge_topk,
+)
 from repro_torch.serve.session import PlanCache, Session, SessionManager
 
 __all__ = [
@@ -42,4 +54,6 @@ __all__ = [
     "PRIORITIES", "AdmissionConfig", "AdmissionController",
     "AdmissionError", "UnknownTenant", "InvalidEmbedding", "QueueFull",
     "RateLimited",
+    "ReplicaRouter", "RouterConfig", "RouterMetrics", "ReplicaUnavailable",
+    "merge_topk",
 ]

@@ -45,8 +45,9 @@ def topk_batch(index, perturbed, kprime: int, *,
                nprobe=None) -> SearchResult:
     """All B perturbed queries through the score-top-k kernel in one
     launch, on the device of ``index`` (a `FlatIndex` or an epoch-pinned
-    `CorpusView`).  ``nprobe`` is ignored on a corpus without a cluster
-    map, as in the reference; IVF routing is not ported (it raises)."""
+    `CorpusView`).  With ``nprobe`` set on a corpus with a cluster map the
+    scan routes through `cluster_topk` (only the ``nprobe`` nearest
+    clusters' slices per query); otherwise the exact flat scan."""
     q = torch.as_tensor(perturbed, dtype=torch.float32,
                         device=index.embeddings.device)
     return search_view(index, q, kprime, nprobe=nprobe)

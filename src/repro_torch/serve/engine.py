@@ -103,9 +103,12 @@ class EngineConfig:
     # bit-identically to the uncontrolled engine.
     admission: Optional["adm.AdmissionConfig"] = None
     # IVF first-stage routing: number of cluster slices each query's
-    # top-k' scan probes.  Ignored on a corpus without a cluster map (the
-    # flat scan runs), as in the reference; the port builds no IVF index
-    # yet (ROADMAP queue 1 item 8).
+    # top-k' scan probes.  Needs an index built with
+    # ``FlatIndex.build(ivf=...)`` (otherwise the flat scan runs and this
+    # is ignored).  None = exact flat scan; nprobe >= the cluster count is
+    # bit-identical to the flat scan.  Use
+    # `repro_torch.retrieval.topk.plan_nprobe` to derive a bound from the
+    # Theorem-1 plan's k'.
     nprobe: Optional[int] = None
     # True (default): quarantine solo retries run on a background retry
     # lane (a single worker thread) so a faulty lane's retry wall never
@@ -220,7 +223,9 @@ class ServeEngine:
                  config: Optional[EngineConfig] = None,
                  sessions: Optional[SessionManager] = None,
                  clock=time.monotonic,
-                 tracer: Optional[obs.Tracer] = None):
+                 tracer: Optional[obs.Tracer] = None,
+                 searcher=None,
+                 request_ids: Optional[itertools.count] = None):
         self.config = EngineConfig() if config is None else config
         self.device = index.device
         # `is None` (not truthiness): an empty SessionManager has len 0
@@ -233,8 +238,10 @@ class ServeEngine:
             index, rlwe_params=self.sessions.rlwe_params,
             use_candidate_cache=self.config.use_candidate_cache,
             cache_config=self.config.cache_config)
-        # pin the corpus at construction: every search (and the epoch
-        # stamp new sessions plan against) reads this frozen snapshot
+        # pin the corpus at construction: every default-path search (and
+        # the epoch stamp new sessions plan against) reads this frozen
+        # snapshot, so a concurrent ingest advancing the index's epoch
+        # never changes what this engine serves until `refresh_corpus`
         self.view = index.corpus_view()
         # an explicit tracer wins (tests inject one built on a fake
         # clock); otherwise EngineConfig.trace selects a real tracer on
@@ -251,10 +258,17 @@ class ServeEngine:
             window=self.config.metrics_window,
             tracer=self.tracer if self.tracer.enabled else None)
         self._clock = clock
-        self._ids = itertools.count()
+        # ``request_ids`` lets a fleet share one id counter (the replica
+        # router passes its own, so request ids are global submit order,
+        # equal to a single engine's); ``searcher`` replaces the top-k'
+        # candidate search (the router injects its scatter-gather, see
+        # `_search_topk`).  Both default to the standalone engine.
+        self._ids = itertools.count() if request_ids is None else request_ids
+        self._searcher = searcher
         self._batch_ids = itertools.count()
-        # guards _queues/_refill/_shed_results/_retry_*: the retry lane
-        # resolves requests from its own thread
+        # guards _queues/_refill/_shed_results/_retry_*: a router submits
+        # from the client thread while each replica steps on its own
+        # worker, and the retry lane resolves requests from its own thread
         self._qlock = threading.Lock()
         # per-group priority-classed FIFO queues keyed once at submit:
         # dispatch pops from a group head instead of rescanning/rewriting
@@ -282,6 +296,17 @@ class ServeEngine:
         self._retry_inflight = 0
         self._retry_cv = threading.Condition(self._qlock)
         self._closed = False
+
+    def refresh_corpus(self, epoch: Optional[int] = None):
+        """Advance (or pin) this engine's corpus view to ``epoch`` (default:
+        the index's current epoch) after an ingest.  Sessions opened
+        afterwards plan against, and are stamped with, the refreshed
+        corpus; open sessions keep their plans (the corpus only grows, so
+        an old plan's Theorem-1 bound stays valid for the rows it was
+        planned over).  Call between batches: an engine mid-dispatch keeps
+        scanning the view it started with."""
+        self.view = self.cloud.index.corpus_view(epoch)
+        return self.view
 
     # -- session + queue ----------------------------------------------------
 
@@ -796,10 +821,16 @@ class ServeEngine:
 
     def _search_topk(self, perturbed, kprime: int) -> np.ndarray:
         """Module 2a, cloud half: the (B, k') host candidate-id block for a
-        (B, n) block of perturbed embeddings, scanned over the engine's
-        pinned `CorpusView`.  Must stay a pure function of (perturbed,
+        (B, n) block of perturbed embeddings.  The default scans the
+        engine's pinned `CorpusView` (through the IVF first stage when
+        `EngineConfig.nprobe` is set on a clustered corpus); a router
+        injects a scatter-gather searcher (``searcher=``) that fans the
+        block out to every replica's slice and merges, by contract bit for
+        bit the full scan.  Must stay a pure function of (perturbed,
         kprime): `_bisect_lanes` re-runs arbitrary row subsets through it
         for fault attribution."""
+        if self._searcher is not None:
+            return np.asarray(self._searcher(perturbed, kprime))
         return batching.topk_batch(
             self.view, perturbed, kprime,
             nprobe=self.config.nprobe).indices.cpu().numpy()
@@ -814,11 +845,12 @@ class ServeEngine:
                               track=f"request-{req.request_id}",
                               request_id=req.request_id,
                               tenant=req.tenant):
-            # top-k' goes through this engine's searcher (the pinned view),
-            # so a quarantined lane's solo retry scans what the batch
-            # scanned.  The session lock keeps the tenant's rng stream
-            # serialized against a concurrent dispatch batch when this runs
-            # on the retry lane.
+            # top-k' goes through this engine's searcher, not a whole-index
+            # scan: under a router that is the per-slice scan + merge, so a
+            # quarantined lane's solo retry stays bit-identical to the
+            # scatter-gather path by construction.  The session lock keeps
+            # the tenant's rng stream serialized against a concurrent
+            # dispatch batch when this runs on the retry lane.
             with sess.lock:
                 docs, ids, tr = protocol.run_remoterag(
                     sess.user, self.cloud, req.embedding,

@@ -459,3 +459,191 @@ def test_launches_are_counted(cuda):
     ntt_ops.ntt_fwd(x, ctx)
     ntt_ops.ntt_fwd(x.cpu(), ctx)               # plain version: not counted
     assert ext.launch_counts() == {"ntt_fwd": 1}
+
+
+def _kernel_scores(q, e, tile):
+    """Every (query, row) score the kernel computes: per-tile top-kk with kk
+    the whole tile, scattered back by row id (the -inf pad of a short last
+    tile lands in an extra column)."""
+    t = min(tile, e.shape[0])
+    vals, idx = kscore.score_topk_cuda(q, e, kk=t, tile=t)
+    out = torch.full((q.shape[0], e.shape[0] + 1), float("nan"),
+                     device=q.device)
+    lane = torch.arange(q.shape[0], device=q.device)[None, :, None]
+    out[lane.expand_as(idx), idx.long()] = vals
+    return out[:, :-1]
+
+
+@pytest.mark.parametrize("n", [768, 64, 130, 6])
+def test_slice_scores_bit_identical_to_full_scan(cuda, n):
+    """A score's bits depend on its (query, row) pair alone: slices at odd
+    starts, query subsets (other query groups), other tiles and a slice
+    shorter than a tile score every pair exactly as the full scan does."""
+    rng = np.random.default_rng(n)
+    q = rng.normal(size=(13, n)).astype(np.float32)
+    e = rng.normal(size=(3000, n)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    e /= np.linalg.norm(e, axis=-1, keepdims=True)
+    qc, ec = torch.from_numpy(q).to(cuda), torch.from_numpy(e).to(cuda)
+    full = _kernel_scores(qc, ec, 256)
+    assert not bool(full.isnan().any())
+    for start, stop, tile in ((0, 3000, 2048), (1, 2999, 256),
+                              (17, 1200, 512), (1001, 1101, 2048),
+                              (2950, 3000, 256), (3, 4, 256)):
+        for qsel in (list(range(13)), [3], [1, 5, 6], [0, 2, 4, 6, 8, 10]):
+            got = _kernel_scores(qc[qsel], ec[start:stop], tile)
+            want = full[qsel][:, start:stop]
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+                start, stop, tile, qsel)
+
+
+def test_slice_merge_bit_identical_with_ties_across_cuts(cuda):
+    """Twenty copies of query 0's best row spread over the corpus and k = 8:
+    per-slice scans merged by (score desc, id asc) return the eight lowest
+    copies and the full scan's value bits, whatever the cuts."""
+    from repro_torch.retrieval.index import FlatIndex, plan_row_slices
+    from repro_torch.retrieval.topk import distributed_topk, slice_topk
+    from repro_torch.serve.router import merge_topk
+
+    rng = np.random.default_rng(11)
+    e = rng.normal(size=(6000, 768)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=-1, keepdims=True)
+    q = e[rng.integers(0, 6000, size=8)] + 0.1 * rng.normal(size=(8, 768))
+    q = (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
+    best = int(np.argmax(e @ q[0]))
+    copies = np.sort(rng.choice(6000, 19, replace=False))
+    e[copies] = e[best]
+    tied = np.sort(np.append(copies, best))
+    index = FlatIndex.build(e, normalize=False, device=cuda)
+    qc = torch.from_numpy(q).to(cuda)
+    for k in (8, 161):
+        full = distributed_topk(index, qc, k)
+        if k == 8:
+            assert full.indices[0].tolist() == tied[:8].tolist()
+        for n_slices in (2, 3, 5):
+            for cuts in (plan_row_slices(6000, n_slices),
+                         [(0, 1), (1, 2049), (2049, 6000)]):
+                parts = [slice_topk(index.slice_view(a, b), qc, k)
+                         for a, b in cuts]
+                merged = merge_topk([p.values.cpu().numpy() for p in parts],
+                                    [p.indices.cpu().numpy() for p in parts],
+                                    k)
+                assert merged.tolist() == full.indices.cpu().tolist()
+
+
+def _ivf_index(device, n_docs=600, dim=64, clusters=6, align=1):
+    from repro_torch.data import synth as tsynth
+    from repro_torch.retrieval.index import FlatIndex, IvfConfig
+
+    rng = np.random.default_rng(0)
+    emb = tsynth.uniform_corpus(rng, n_docs, dim)
+    emb[n_docs * 3 // 4] = emb[10]
+    emb[n_docs // 2] = emb[10]
+    q = tsynth.queries_near_corpus(rng, emb, 6)
+    q[2] = emb[10]
+    docs = [f"passage-{i}".encode() for i in range(n_docs)]
+    index = FlatIndex.build(emb, documents=docs, normalize=False,
+                            ivf=IvfConfig(num_clusters=clusters,
+                                          align=align), device=device)
+    return index, q
+
+
+def test_cluster_topk_equals_flat_scan_on_card(cuda):
+    from repro_torch.retrieval.topk import cluster_topk, distributed_topk
+
+    index, q = _ivf_index(cuda, n_docs=6000, dim=768, clusters=6, align=500)
+    view = index.corpus_view()
+    qc = torch.from_numpy(q).to(cuda)
+    cpu_index, _ = _ivf_index("cpu", n_docs=6000, dim=768, clusters=6,
+                              align=500)
+    for k in (8, 161):
+        flat = distributed_topk(index, qc, k)
+        for nprobe in (None, 6, 9):
+            routed = cluster_topk(view, qc, k, nprobe=nprobe)
+            assert torch.equal(routed.indices, flat.indices)
+            assert torch.equal(routed.values.view(torch.int32),
+                               flat.values.view(torch.int32))
+            assert routed.exact
+        plain = cluster_topk(cpu_index.corpus_view(), q, k)
+        torch.testing.assert_close(flat.values.cpu(), plain.values,
+                                   rtol=1e-5, atol=1e-6)
+        _assert_ids_equal_up_to_ties(flat.indices.cpu(), plain.indices,
+                                     torch.from_numpy(q),
+                                     cpu_index.embeddings)
+
+
+def test_ingest_tail_on_card_equals_plain_pack(cuda):
+    """Tail shards packed on the card (one longer, one shorter than
+    shard_docs) equal the plain pack bit for bit; the admitter's pinned
+    staging copies them to the card and gathers read them there."""
+    params = rlwe.RlweParams(n_poly=1024, chunk=512)
+    index, _ = _ivf_index(cuda)
+    cfg = rlwe.CandidateCacheConfig(shard_docs=64, admit_threshold=1)
+    sh = index.candidate_cache(params, cfg)
+    rng = np.random.default_rng(3)
+    tails = []
+    for m in (100, 30):
+        new = rng.normal(size=(m, 64)).astype(np.float32)
+        new /= np.linalg.norm(new, axis=-1, keepdims=True)
+        tails.append(new)
+        index.ingest(new, normalize=False)
+    sh.flush()
+    assert sh.ingests == 2 and sh.num_docs == 730 and sh.epoch == 2
+    assert set(sh.resident_shards) >= {sh.num_shards - 2, sh.num_shards - 1}
+    plain = rlwe._pack_corpus_ntt(
+        params, torch.from_numpy(np.concatenate(tails)), host=True)
+    on_card = rlwe._pack_corpus_ntt(
+        params, torch.from_numpy(np.concatenate(tails)).to(cuda))
+    assert np.array_equal(on_card.cpu().numpy(), plain)
+    ids = np.arange(600, 730).reshape(2, 65)
+    assert torch.equal(sh.gather(ids).cpu(),
+                       torch.from_numpy(plain).reshape(2, 65, *plain.shape[1:]))
+    assert sh.stats()["hits"] > 0
+    sh.close()
+
+
+@pytest.mark.parametrize("ivf", [False, True])
+def test_router_two_replicas_equals_engine_on_card(cuda, ivf):
+    from repro_torch.data import synth as tsynth
+    from repro_torch.retrieval.index import FlatIndex
+    from repro_torch.serve import (EngineConfig, ReplicaRouter, RouterConfig,
+                                   ServeEngine, SessionManager)
+
+    params = rlwe.RlweParams(n_poly=1024, chunk=512)
+    if ivf:
+        index, q = _ivf_index(cuda)
+    else:
+        rng = np.random.default_rng(1)
+        emb = tsynth.uniform_corpus(rng, 1500, 64)
+        emb[800] = emb[100]
+        emb[1200] = emb[100]
+        q = tsynth.queries_near_corpus(rng, emb, 8)
+        q[3] = emb[100]
+        index = FlatIndex.build(emb, normalize=False, device=cuda, documents=[
+            f"passage-{i}".encode() for i in range(1500)])
+    cfg = EngineConfig(max_batch=3, max_wait_s=30.0,
+                       nprobe=6 if ivf else None)
+
+    def run(srv):
+        for t in ("alice", "bob"):
+            srv.open_session(t, n=64, N=index.num_rows, k=4,
+                             plan_kwargs={"kprime": 12})
+        for i, x in enumerate(q):
+            srv.submit(("alice", "bob")[i % 2], x, key=i)
+        out = srv.drain()
+        srv.close()
+        return out
+
+    def sessions():
+        return SessionManager(rlwe_params=params, deterministic_seeds=True,
+                              device=cuda)
+
+    want = run(ServeEngine(index, config=cfg, sessions=sessions()))
+    got = run(ReplicaRouter(index, config=RouterConfig(num_replicas=2,
+                                                       engine=cfg),
+                            sessions=sessions()))
+    assert len(got) == len(q) and all(r.ok for r in got)
+    for a, b in zip(want, got):
+        assert a.request_id == b.request_id and a.docs == b.docs
+        assert a.ids.tolist() == b.ids.tolist()
+        assert a.transcript.total_bytes == b.transcript.total_bytes

@@ -323,9 +323,25 @@ def test_launch_serve_main_cpu():
     served = [x for x in lines if "recall" in x]
     assert len(served) == 4 and all(x["recall"] == 1.0 for x in served)
     assert lines[-1]["num_batches"] == 2
-    for flags in (["--replicas", "2"], ["--ivf-clusters", "4"],
-                  ["--nprobe", "2"], ["--ingest", "10"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            launch_serve.main(["--device", "cpu", *flags])
+    # the router, IVF routing and ingestion flags, as the reference's
+    base = ["--device", "cpu", "--n-docs", "300", "--dim", "64",
+            "--requests", "4", "--tenants", "2", "--max-batch", "2"]
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        launch_serve.main(base + ["--replicas", "2", "--corpus", "clustered",
+                                  "--ivf-clusters", "3", "--nprobe", "auto",
+                                  "--ingest", "10"])
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+    assert lines[1]["ivf"]["clusters"] == 3
+    fleet = next(x for x in lines if "router" in x)
+    assert fleet["router"]["num_replicas"] == 2
+    assert sum(fleet["router"]["completed"]) == 4
+    ingest = next(x["ingest"] for x in lines if "ingest" in x)
+    assert (ingest["epoch"], ingest["num_rows"]) == (1, 310)
+    assert ingest["replanned_slices"][-1][1] == 310
+    grown = [x for x in lines if x.get("epoch") == 1]
+    assert len(grown) == 4 and all("error" not in x for x in grown)
+    with pytest.raises(SystemExit):
+        launch_serve.main(base + ["--nprobe", "2"])    # needs --ivf-clusters
     with pytest.raises(UnknownBackend):
         launch_serve.main(["--device", "cpu", "--backend", "paillier"])
