@@ -19,10 +19,10 @@ RLWE ring) it
      exists, the PyTorch library call computing the same function; the NTT
      also at one polynomial, the batch's 8 and one request's 41 rows, the
      pointwise product at 1 and 41 rows, the fused re-rank at one request,
-     score-top-k at one query and over the row counts of a router slice,
-     an IVF cluster and the ingested tail (``at_shapes``); the fused
-     re-rank reads gathered rows in place, as the serving path hands them
-     over;
+     score-top-k at one query, at the privacy-ignorant baseline's top 5,
+     and over the row counts of a router slice, an IVF cluster and the
+     ingested tail (``at_shapes``); the fused re-rank reads gathered rows
+     in place, as the serving path hands them over;
   4. serves 8 requests of 4 tenants one at a time through ``run_remoterag``
      and again as one batch (perturb_batch -> topk_batch ->
      encrypted_scores_cached_batch -> decrypt_scores_batch ->
@@ -42,7 +42,22 @@ RLWE ring) it
      max_batch 8, scatter-gather over 250,000-row slices) on the same index
      and dense cache, and checks every request equal to the dense batched
      engine run (ids, documents, wire bytes, request ids);
-  8. frees that state and builds a clustered corpus of 10^6 x 768 (64
+  8. the Paillier backend on the same index (512-bit keys, 46 residue
+     channels; the phase's line): one batch of 8 lanes through the
+     vectorized encrypt, score and decrypt on the card, each stage timed,
+     profiled and held bit for bit against the object path under shared
+     seeds (decrypted scores within 2e-3 of the plaintext inner products);
+     16 requests of 4 tenants through a ``ServeEngine`` (max_batch 8), the
+     first 8 again one at a time, equal per request, recall@5 against the
+     plaintext top-5, ciphertext bytes equal to the accounting model's at
+     each key's own size; one request through ``run_remoterag``; one batch mixing a
+     1024-bit tenant (90 channels, the object path) with 512-bit ones, its
+     lane counters printed and the object lane equal to a solo run; the
+     baselines (privacy-ignorant over the 10^6 rows, privacy-conscious
+     RLWE and Paillier over the first 512 rows, OT over those 512 timed
+     once, walls extrapolated linearly to 10^6); and the bignum ops (not
+     Pallas) timed at the phase's shapes beside their byte bound;
+  9. frees that state and builds a clustered corpus of 10^6 x 768 (64
      natural clusters) with IVF (16 clusters aligned to 62,500-doc cache
      shards, so clusters and shards coincide) and the sharded cache only,
      then checks (a) 16 aligned ranges, (b) ``cluster_topk`` with every
@@ -106,6 +121,12 @@ IVF_DOCS, IVF_CLUSTERS, IVF_SHARD_DOCS, INGEST_DOCS = 10**6, 16, 62_500, 50_000
 # kernels of the serving path (fused_rerank is the staged witness only)
 PATH_KERNELS = ("ntt_fwd", "ntt_inv", "pointwise_mul", "fused_rerank_intt",
                 "score_topk")
+# kernels of the Paillier serving path (the first stage) and of the RLWE
+# privacy-conscious baseline (fresh packing: no fused re-rank)
+PAILLIER_KERNELS = ("score_topk",)
+CONSCIOUS_KERNELS = ("ntt_fwd", "ntt_inv", "pointwise_mul")
+PAILLIER_BITS, FALLBACK_BITS = 512, 1024   # tenants' keys; the object tier
+CONSCIOUS_ROWS = 512         # rows of the privacy-conscious baselines
 
 
 def emit(obj) -> None:
@@ -399,16 +420,20 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
     # and with one query (one request at a time and the sequential engine:
     # most launches); over the row counts of a router slice (250,000), an
     # IVF cluster / cache shard (62,500) and the ingested tail (50,000),
-    # the same work as those scans whatever rows they hold
+    # the same work as those scans whatever rows they hold; and the
+    # privacy-ignorant baseline's scan (one query, top k = 5 per tile)
     full_rows = index.num_rows
     timed = []
-    for b, sub in ((1, IVF_SHARD_DOCS), (bsz, IVF_SHARD_DOCS),
-                   (1, INGEST_DOCS), (bsz, INGEST_DOCS),
-                   (bsz, full_rows // ROUTER_REPLICAS), (1, full_rows),
-                   (bsz, full_rows)):
+    for b, sub, k_sel in ((1, IVF_SHARD_DOCS, plan.kprime),
+                          (bsz, IVF_SHARD_DOCS, plan.kprime),
+                          (1, INGEST_DOCS, plan.kprime),
+                          (bsz, INGEST_DOCS, plan.kprime),
+                          (bsz, full_rows // ROUTER_REPLICAS, plan.kprime),
+                          (1, full_rows, plan.k), (1, full_rows, plan.kprime),
+                          (bsz, full_rows, plan.kprime)):
         emb = index.embeddings[:min(sub, full_rows)]
         n_rows, dim = emb.shape
-        tile, kk = min(2048, n_rows), min(plan.kprime, 2048, n_rows)
+        tile, kk = min(2048, n_rows), min(k_sel, 2048, n_rows)
         num_tiles = -(-n_rows // tile)
         pad = num_tiles * tile - n_rows
         q = torch.from_numpy(np.asarray(queries[:b], np.float32)).to(dev)
@@ -583,7 +608,7 @@ def serve_phase(torch, np, args, index, cloud, params, plan,
     check(all(r == 1.0 for r in recalls),
           f"recall@{plan.k} {recalls}; k-th/(k+1)-th plaintext gaps {gaps}")
     check(max_err <= 2e-3, f"decrypted scores off by {max_err}")
-    shared = dict(cand=cand, enc=enc, want=want)
+    shared = dict(cand=cand, enc=enc, want=want, gaps=gaps)
     return shared, dict(requests=nq, tenants=TENANTS, recall_at_k=recalls,
                 kth_gap=gaps,
                 max_score_err=max_err, seq_request_ms=seq_ms,
@@ -661,10 +686,12 @@ def launch_tally(kernels: list, paths: list) -> None:
                 row["ms"] - row["bound_ms"])
 
 
-def path_launches(name: str, counts: dict) -> dict:
-    """Fail unless every kernel of the serving path launched in ``counts``
-    (one path's run, counts set to 0 just before it)."""
-    for kern in PATH_KERNELS:
+def path_launches(name: str, counts: dict,
+                  kernels: tuple = PATH_KERNELS) -> dict:
+    """Fail unless every kernel of the path (``kernels``: the RLWE serving
+    path's by default) launched in ``counts`` (one path's run, counts set
+    to 0 just before it)."""
+    for kern in kernels:
         check(counts.get(kern, 0) > 0, f"{name}: kernel {kern} not launched")
     return counts
 
@@ -878,13 +905,13 @@ def ids_up_to_ties(torch, q, emb, got, want, want_vals, what) -> int:
 
 
 def serve_run(torch, np, srv, queries, keys, tenant, name,
-              profiled=False, join=None) -> tuple:
+              profiled=False, join=None, kernels=PATH_KERNELS) -> tuple:
     """Submit ``queries[j]`` with ``keys[j]`` for ``tenant(j)`` and drain,
     the launch counts set to 0 just before and read just after (with
     ``profiled``, under torch.profiler, CUDA activity only; ``join`` is
     called after the drain, before the counts are read, for work that runs
     beside the requests).  Every kernel of the serving path must have
-    launched and every request succeeded."""
+    launched (``kernels``) and every request succeeded."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ext
@@ -906,7 +933,7 @@ def serve_run(torch, np, srv, queries, keys, tenant, name,
     if prof is not None:
         prof.__exit__(None, None, None)
         _, busy_ms = device_busy(torch, prof)
-    launches = path_launches(name, ext.launch_counts())
+    launches = path_launches(name, ext.launch_counts(), kernels)
     check(len(res) == len(queries) and all(r.ok for r in res),
           f"{name}: {[r.error for r in res if not r.ok]}")
     return res, dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -960,6 +987,406 @@ def router_phase(torch, np, args, index, params, plan, queries,
                     fleet["merge_wall_s"] * 1e3 / fleet["scatter_calls"]),
                 submitted=fleet["submitted"], stages_by_replica=stages,
                 **run)
+
+
+def device_profile(torch, prof, wall_ms: float) -> dict:
+    """Device-side events of a CUDA-only profile: busy ms, kernel launches
+    and copies (memcpy, memset), and the idle share of ``wall_ms`` (the
+    same work's wall without the profiler); an empty trace gives nulls,
+    never an idle device."""
+    busy, kernels, copies = 0.0, 0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.time_range.elapsed_us() / 1e3
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels += 1
+    if kernels + copies == 0:
+        return dict(device_busy_ms=None, launches=None, copies=None,
+                    device_idle_share=None)
+    return dict(device_busy_ms=busy, launches=kernels, copies=copies,
+                device_idle_share=1.0 - busy / wall_ms)
+
+
+def walled(torch, fn) -> tuple:
+    """(fn(), wall ms, Montgomery multiplies) between synchronizations."""
+    from repro_torch.kernels.bignum import ops as bops
+
+    torch.cuda.synchronize()
+    bops.reset_mont_mul_counts()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3, bops.mont_mul_counts()
+
+
+def profiled(torch, fn, wall_ms: float) -> tuple:
+    """(fn(), device profile) for a repeat of work whose unprofiled wall
+    was ``wall_ms`` (torch.profiler, CUDA activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r = fn()
+        torch.cuda.synchronize()
+    return r, device_profile(torch, prof, wall_ms)
+
+
+def check_wire(accounting, res, key_bits: int, dim: int, kprime: int,
+               what: str) -> None:
+    """The ciphertext part of a Paillier transcript equals the accounting
+    model's at the key's own bit length."""
+    tr = res.transcript if hasattr(res, "transcript") else res
+    check(tr.request_bytes - (dim * 4 + 4)
+          == accounting.paillier_query_bytes(dim, key_bits)
+          and tr.reply_bytes - kprime * 4
+          == accounting.paillier_scores_bytes(kprime, key_bits),
+          f"{what}: wire bytes {tr.request_bytes}/{tr.reply_bytes} differ "
+          f"from the model at {key_bits}-bit keys")
+
+
+def bignum_table(torch, np, sks, kprime, dim, dev, seed) -> list:
+    """The bignum ops (float64 tensor ops, not Pallas) at the score stage's
+    shapes (8 lanes, k' = 161, 768 dims, 93 channels of 512-bit keys):
+    each one's wall per call (CUDA events around it: what a caller waits),
+    device time where a call's launches fit behind the timing spin, its
+    launches (profiled over ``reps`` calls in one session: a session of a
+    few launches can come back short) and the time its bytes take at the
+    HBM rate (each input read once, the output written once)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.crypto import paillier_vec as pvec
+    from repro_torch.kernels.bignum import ops as bops
+    from repro_torch.kernels.bignum import ref as bref
+
+    L, K, D = len(sks), kprime, dim
+    ctxs = [pvec._ctx(sk.pub.n_sq) for sk in sks]
+    C2 = bops.make_consts(ctxs[0].system, ctxs, 2, device=dev)
+    C3 = bops.make_consts(ctxs[0].system, ctxs, 3, device=dev)
+    gen = np.random.default_rng(seed)
+
+    def values(count):
+        return torch.from_numpy(np.stack([bref.to_rns(c, [
+            int(gen.integers(1, 2**62)) ** 9 % c.modulus
+            for _ in range(count)]) for c in ctxs])).to(dev)
+
+    acc, qv = values(K), values(D)                  # [L, K, C], [L, D, C]
+    nch = acc.shape[-1]
+    table = bops.pow_table(qv, C2, pvec.SCORE_WINDOW)
+    idx = torch.from_numpy(gen.integers(0, table.shape[0], size=(L, K, D))
+                           ).to(dev)
+    lane = torch.arange(L, device=dev)[:, None, None]
+    dim = torch.arange(D, device=dev)[None, None, :]
+    g = table[idx, lane, dim]                       # [L, K, D, C]
+    half = g[:, :, :D // 2].contiguous()
+    ndig = torch.from_numpy(bops.to_digits([sk.pub.n for sk in sks],
+                                           pvec.EXP_WINDOW)).to(dev)
+    digits = ndig[:, None, :].expand(-1, K, -1)
+    ntable = bops.pow_table(acc, C2, pvec.EXP_WINDOW)
+    f64 = 8
+    rows = [   # name, shape, call, bytes, device-timed, profiled calls
+        ("mont_mul", [L, K, nch], lambda: bops.mont_mul(acc, acc, C2),
+         3 * acc.numel() * f64, True, 20),
+        ("mont_mul", [L, K, D // 2, nch],
+         lambda: bops.mont_mul(half, half, C3), 3 * half.numel() * f64,
+         True, 3),
+        ("gather", [L, K, D, nch], lambda: table[idx, lane, dim],
+         (table.numel() + g.numel()) * f64 + idx.numel() * 8, True, 20),
+        ("product_reduce", [L, K, D, nch],
+         lambda: bops.product_reduce(g, C3), (g.numel() + acc.numel()) * f64,
+         False, 3),
+        ("pow_table_w5", [L, D, nch],
+         lambda: bops.pow_table(qv, C2, pvec.SCORE_WINDOW),
+         (qv.numel() + table.numel()) * f64, False, 2),
+        ("exp_n_w4", [L, K, nch],
+         lambda: bops.mont_exp_digits(ntable, digits, C2, pvec.EXP_WINDOW),
+         (ntable.numel() + acc.numel()) * f64 + digits.numel() * 8, False, 1),
+    ]
+    out = []
+    for name, shape, fn, nbytes, device_timed, reps in rows:
+        torch.cuda.synchronize()
+        bops.reset_mont_mul_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        launches = sum(1 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        out.append(dict(
+            name=name, shape=shape,
+            mont_muls=bops.mont_mul_counts()["calls"] // reps,
+            launches=(launches / reps if launches else None),
+            call_ms=call_ms(torch, fn, 5),
+            device_ms=(time_ms(torch, fn, 5) if device_timed else None),
+            bound_ms=nbytes / HBM_BYTES_S * 1e3, bound_by="bytes"))
+    del g, half, table, ntable
+    return out
+
+
+def paillier_phase(torch, np, args, index, plan, queries, shared) -> tuple:
+    """The Paillier backend over the paper-config index (10^6 x 768, k' =
+    161, 512-bit keys: 46 residue channels).  Returns (phase dict, [(path,
+    launches, shapes)])."""
+    from repro_torch.core import accounting, baselines, protocol
+    from repro_torch.crypto import ot as ot_mod
+    from repro_torch.crypto import paillier as pai
+    from repro_torch.crypto import paillier_vec as pvec
+    from repro_torch.kernels import ext
+    from repro_torch.kernels.bignum import ref as bref
+    from repro_torch.retrieval.index import FlatIndex
+    from repro_torch.serve import EngineConfig, ServeEngine, SessionManager
+
+    dev = index.device
+    nq, dim, kprime, k = len(queries), index.dim, plan.kprime, plan.k
+    want = shared["want"]
+    out, paths = {}, []
+
+    # -- (a) one batch of 8 lanes, stage by stage, against the object path -
+    t0 = time.perf_counter()
+    keys = [pai.keygen(PAILLIER_BITS,
+                       rng=np.random.default_rng(args.seed + 200 + t))
+            for t in range(TENANTS)]
+    out["keygen_s"] = time.perf_counter() - t0
+    sks = [keys[j % TENANTS] for j in range(nq)]
+    channels = bref.num_channels(keys[0].pub.n_sq)
+    check(channels == 46 and all(pvec.fits(s.pub) for s in keys),
+          f"paillier: {channels} channels at {PAILLIER_BITS}-bit keys")
+    cand = shared["cand"]
+    rows = index.rows(cand)                              # (8, k', 768)
+    rows_np = rows.cpu().numpy()
+    enc_seed, blind_seed = args.seed + 300, args.seed + 400
+    pvec.reset_counters()
+
+    def encrypt(j):
+        return pvec.encrypt_vector(
+            sks[j].pub, queries[j], rng=np.random.default_rng(enc_seed + j),
+            device=dev)
+
+    def score():
+        return pvec.encrypted_scores_batch(
+            [s.pub for s in sks], enc, list(rows),
+            rngs=[np.random.default_rng(blind_seed + j) for j in range(nq)],
+            device=dev)
+
+    stages = {}
+    enc, wall, mm = walled(torch, lambda: [encrypt(j) for j in range(nq)])
+    lane0_wall = walled(torch, lambda: encrypt(0))[1]
+    enc0, prof = profiled(torch, lambda: encrypt(0), lane0_wall)
+    check(enc0 == enc[0], "paillier: encryption is not reproducible")
+    stages["encrypt"] = dict(wall_ms=wall, lanes=nq, mont_muls=mm,
+                             lane_wall_ms=lane0_wall, lane_profile=prof)
+    cts, wall, mm = walled(torch, score)
+    again, prof = profiled(torch, score, wall)
+    check(again == cts, "paillier: scores are not reproducible")
+    stages["score"] = dict(wall_ms=wall, mont_muls=mm, **prof)
+    dec, wall, mm = walled(torch, lambda: pvec.decrypt_scores_batch(
+        sks, cts, device=dev))
+    _, prof = profiled(torch, lambda: pvec.decrypt_scores_batch(
+        sks, cts, device=dev), wall)
+    stages["decrypt"] = dict(wall_ms=wall, mont_muls=mm, **prof)
+    check(pvec.counters["object"] == 0,
+          f"paillier: 512-bit lanes took the object path {pvec.counters}")
+
+    # the object path on the same batch and seeds: the same integers
+    obj = {}
+    t0 = time.perf_counter()
+    obj_enc = [pai.encrypt_vector(sks[j].pub, queries[j],
+                                  rng=np.random.default_rng(enc_seed + j))
+               for j in range(nq)]
+    obj["encrypt_ms"] = (time.perf_counter() - t0) * 1e3
+    check(obj_enc == enc, "paillier: vectorized encryption differs from "
+                          "the object path")
+    t0 = time.perf_counter()
+    obj_cts = [pai.encrypted_scores(sks[j].pub, enc[j], rows_np[j],
+                                    rng=np.random.default_rng(blind_seed + j))
+               for j in range(nq)]
+    obj["score_ms"] = (time.perf_counter() - t0) * 1e3
+    check(obj_cts == cts, "paillier: vectorized scores differ from the "
+                          "object path")
+    t0 = time.perf_counter()
+    obj_dec = [pai.decrypt_scores(sks[j], cts[j]) for j in range(nq)]
+    obj["decrypt_ms"] = (time.perf_counter() - t0) * 1e3
+    check(all(np.array_equal(a, b) for a, b in zip(obj_dec, dec)),
+          "paillier: vectorized decryption differs from the object path")
+    q = torch.from_numpy(np.asarray(queries, np.float64)).to(dev)
+    truth = torch.einsum("bkd,bd->bk", rows.double(), q).cpu().numpy()
+    max_err = float(np.abs(np.stack(dec) - truth).max())
+    check(max_err <= 2e-3, f"paillier: decrypted scores off by {max_err}")
+    out.update(batch_lanes=nq, channels=channels, stages=stages,
+               object_path=obj, max_score_err=max_err,
+               vectorized_vs_object=dict(
+                   (s, stages[s]["wall_ms"] / obj[f"{s}_ms"])
+                   for s in ("encrypt", "score", "decrypt")))
+
+    # -- (b) 16 requests of 4 tenants through the engine, batched and one
+    # at a time; (d) a batch mixing a 1024-bit tenant -----------------------
+    def engine(cfg, bits):
+        eng = ServeEngine(index, config=cfg, sessions=SessionManager(
+            deterministic_seeds=True, device=dev))
+        for t, b in bits.items():
+            eng.open_session(t, n=dim, N=index.num_rows, k=k,
+                             backend="paillier", paillier_bits=b,
+                             plan_kwargs={"kprime": 160})
+        return eng
+
+    tenants = {f"tenant-{t}": PAILLIER_BITS for t in range(TENANTS)}
+    n = 2 * nq
+    reqs = [queries[j % nq] for j in range(n)]
+    rkeys = [args.seed * 1000 + j for j in range(n)]
+    runs, results = {}, {}
+    for name, cfg in (("batched", EngineConfig(max_batch=8, trace=True)),
+                      ("sequential", EngineConfig(max_batch=1,
+                                                  sequential=True))):
+        # one at a time, the first 8 requests: the object path scores them
+        # on the host (seconds a request)
+        count = n if name == "batched" else nq
+        eng = engine(cfg, tenants)
+        res, run = serve_run(torch, np, eng, reqs[:count], rkeys[:count],
+                             lambda j: f"tenant-{j % TENANTS}",
+                             f"paillier engine {name}",
+                             kernels=PAILLIER_KERNELS)
+        for r in res:
+            check_wire(accounting, r, eng.sessions.get(
+                r.tenant).user.sk.pub.key_bits, dim, kprime,
+                f"paillier engine {name}")
+        summary = eng.metrics.summary()
+        run.update(num_batches=summary["num_batches"],
+                   p50_latency_s=summary["aggregate"]["p50_latency_s"])
+        if cfg.trace:
+            run["stages"] = eng.trace_summary()["stages"]
+        eng.close()
+        results[name], runs[name] = res, run
+        paths.append((f"paillier_engine_{name}", run["launches"],
+                      run.pop("shapes")))
+    for a, b in zip(results["batched"], results["sequential"]):
+        check(same_result(a, b), f"paillier engine: request {a.request_id} "
+                                 f"batched differs from sequential")
+    recalls = [len(set(r.ids.tolist()) & set(want[r.request_id % nq].tolist()))
+               / k for r in results["batched"]]
+    check(all(x == 1.0 for x in recalls),
+          f"paillier engine: recall@{k} {recalls}; k-th/(k+1)-th plaintext "
+          f"gaps {shared['gaps']}")
+    out.update(engine=runs, recall_at_k=recalls, kth_gap=shared["gaps"])
+
+    # -- (c) one request through run_remoterag ----------------------------
+    user = protocol.RemoteRagUser(
+        n=dim, N=index.num_rows, k=k, plan=plan, backend="paillier",
+        paillier_bits=PAILLIER_BITS, rng=np.random.default_rng(args.seed + 500),
+        device=dev)
+    cloud = protocol.RemoteRagCloud(index)
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    t0 = time.perf_counter()
+    docs, ids, tr = protocol.run_remoterag(
+        user, cloud, queries[0],
+        torch.Generator(device=dev).manual_seed(args.seed * 1000))
+    one_ms = (time.perf_counter() - t0) * 1e3
+    paths.append(("paillier_run_remoterag", path_launches(
+        "paillier run_remoterag", ext.launch_counts(), PAILLIER_KERNELS),
+        shape_counts(ext.launch_shapes())))
+    first = results["batched"][0]
+    check(ids.tolist() == first.ids.tolist() and docs == first.docs,
+          "paillier run_remoterag differs from the engine's request 0")
+    check_wire(accounting, tr, user.sk.pub.key_bits, dim, kprime,
+               "paillier run_remoterag")
+    out["run_remoterag_ms"] = one_ms
+
+    # (d) the fallback boundary: one batch, a 1024-bit tenant (90 channels,
+    # the object path) beside three 512-bit ones
+    mixed = {"tenant-big": FALLBACK_BITS,
+             **{f"tenant-{t}": PAILLIER_BITS for t in range(1, TENANTS)}}
+    names = list(mixed)
+    pvec.reset_counters()
+    eng = engine(EngineConfig(max_batch=8), mixed)
+    big = eng.sessions.get("tenant-big").user.sk.pub
+    check(not pvec.fits(big) and bref.num_channels(big.n_sq) == 90,
+          f"paillier: {bref.num_channels(big.n_sq)} channels at "
+          f"{FALLBACK_BITS} bits")
+    res, run = serve_run(torch, np, eng, reqs[:TENANTS], rkeys[:TENANTS],
+                         lambda j: names[j], "paillier fallback batch",
+                         kernels=PAILLIER_KERNELS)
+    eng.close()
+    lanes = dict(pvec.counters)
+    check(lanes == {"vectorized": 3 * (TENANTS - 1), "object": 3}
+          and res[0].batch_size == TENANTS,
+          f"paillier fallback: lane counters {lanes}")
+    solo_eng = engine(EngineConfig(max_batch=1), {"tenant-big": FALLBACK_BITS})
+    solo, _ = serve_run(torch, np, solo_eng, reqs[:1], rkeys[:1],
+                        lambda j: "tenant-big", "paillier fallback solo",
+                        kernels=PAILLIER_KERNELS)
+    solo_eng.close()
+    check(solo[0].ids.tolist() == res[0].ids.tolist()
+          and solo[0].docs == res[0].docs,
+          "paillier fallback: the object lane differs from its solo run")
+    check_wire(accounting, res[0], big.key_bits, dim, kprime,
+               "paillier fallback lane")
+    paths.append(("paillier_fallback", run["launches"], run.pop("shapes")))
+    out["fallback"] = dict(lane_counters=lanes, batch_size=res[0].batch_size,
+                           wall_ms=run["wall_ms"],
+                           object_lane_ids=res[0].ids.tolist())
+
+    # -- (e) the paper's baselines -----------------------------------------
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    t0 = time.perf_counter()
+    ign = [baselines.privacy_ignorant_service(index, queries[j], k)
+           for j in range(nq)]
+    ign_ms = (time.perf_counter() - t0) * 1e3
+    paths.append(("baseline_ignorant", path_launches(
+        "privacy-ignorant baseline", ext.launch_counts(), PAILLIER_KERNELS),
+        shape_counts(ext.launch_shapes())))
+    q32 = q.float()
+    got_ids = torch.from_numpy(np.stack([b.ids for b in ign]).astype(
+        np.int64)).to(dev)
+    want_t = torch.from_numpy(want.astype(np.int64)).to(dev)
+    want_vals = torch.gather(q32 @ index.embeddings.T, 1, want_t)
+    swaps = ids_up_to_ties(torch, q32, index.embeddings, got_ids, want_t,
+                           want_vals, "privacy-ignorant")
+    small_n = CONSCIOUS_ROWS
+    small_docs = [f"passage-{i}".encode() for i in range(small_n)]
+    small = FlatIndex.build(index.embeddings[:small_n].cpu().numpy(),
+                            documents=small_docs, normalize=False)
+    s_want = torch.sort(-(small.embeddings.double() @ q[0]),
+                        stable=True)[1][:k].cpu().numpy()
+    conscious = {}
+    for backend in ("rlwe", "paillier"):
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        t0 = time.perf_counter()
+        r = baselines.privacy_conscious_service(
+            small, queries[0], k, backend=backend,
+            rng=np.random.default_rng(args.seed + 600), run_ot=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        check(r.ids.tolist() == s_want.tolist(),
+              f"privacy-conscious {backend}: ids {r.ids.tolist()}, "
+              f"plaintext top-{k} {s_want.tolist()}")
+        conscious[backend] = dict(phe_s=wall_s, wire_bytes=r.wire_bytes)
+        if backend == "rlwe":
+            paths.append(("baseline_conscious_rlwe", path_launches(
+                "privacy-conscious rlwe", ext.launch_counts(),
+                CONSCIOUS_KERNELS), shape_counts(ext.launch_shapes())))
+    # the k-of-N OT over the same rows, once (the same for both schemes)
+    width = max(len(d) for d in small_docs)
+    t0 = time.perf_counter()
+    got, ot_wire = ot_mod.run_ot([d.ljust(width, b"\x00") for d in small_docs],
+                                 [int(i) for i in s_want])
+    ot_s = time.perf_counter() - t0
+    check([d.rstrip(b"\x00") for d in got] == [small_docs[i] for i in s_want],
+          "privacy-conscious OT: wrong documents")
+    for backend, c in conscious.items():
+        c["extrapolated_linear_s_at_1e6"] = (c["phe_s"] + ot_s) * 1e6 / small_n
+    out["baselines"] = dict(
+        ignorant=dict(requests=nq, wall_ms=ign_ms, id_swaps_at_ties=swaps,
+                      wire_bytes=ign[0].wire_bytes),
+        conscious=dict(rows=small_n, ot_s=ot_s, ot_wire_bytes=ot_wire,
+                       **conscious))
+
+    # -- (f) the bignum ops at the score stage's shapes ---------------------
+    out["bignum_ops"] = bignum_table(torch, np, sks, kprime, dim, dev,
+                                     args.seed + 700)
+    return out, paths
 
 
 def plain_routed_topk(torch, np, view, q, k, nprobe) -> tuple:
@@ -1321,6 +1748,12 @@ def flat_phases(torch, np, args, emits) -> tuple:
     paths += [(f"engine_{name}", run["launches"], run["shapes"])
               for name, run in engine.items()]
     paths.append(("router", router["launches"], router["shapes"]))
+    with Peaks(torch) as pk_paillier:
+        t0 = time.perf_counter()
+        paillier, paillier_paths = paillier_phase(torch, np, args, index,
+                                                  plan, queries, shared)
+        paillier_s = time.perf_counter() - t0
+    paths += paillier_paths
     emits.append({"phase": "serve", "n_docs": args.n_docs, "dim": dim,
                   "k": plan.k, "kprime": plan.kprime, "path": plan.path,
                   "eps": plan.eps, "data_s": data_s, "index_s": index_s,
@@ -1337,6 +1770,10 @@ def flat_phases(torch, np, args, emits) -> tuple:
                   "memory": pk_engine.result})
     emits.append({"phase": "router", "requests": 2 * len(queries),
                   "phase_s": router_s, "memory": pk_router.result, **router})
+    emits.append({"phase": "paillier", "key_bits": PAILLIER_BITS,
+                  "kprime": plan.kprime, "dim": dim,
+                  "phase_s": paillier_s, "memory": pk_paillier.result,
+                  **paillier})
     for run in engine.values():
         run.pop("shapes")
     router.pop("shapes")

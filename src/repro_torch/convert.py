@@ -1,8 +1,9 @@
 """Carry the JAX package's state into the port's objects.
 
-Takes plain numpy arrays (``np.asarray`` of the JAX package's arrays),
-never objects of that package, so the port still imports nothing of it.
-With these, both packages compute on the same state in the parity tests.
+Takes plain numpy arrays (``np.asarray`` of the JAX package's arrays) and
+Python integers (a Paillier key's), never objects of that package, so the
+port still imports nothing of it.  With these, both packages compute on
+the same state in the parity tests.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.crypto import paillier as pai
 from repro_torch.crypto import rlwe
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.retrieval.index import ClusterMap, FlatIndex
@@ -96,5 +98,19 @@ def secret_key(params: rlwe.RlweParams, s: np.ndarray, s_ntt: np.ndarray, *,
         s_ntt=torch.from_numpy(np.asarray(s_ntt, np.int32)).to(dev))
 
 
+def paillier_public_key(n: int, g: int) -> pai.PaillierPublicKey:
+    """A Paillier public key from ``PaillierPublicKey.n`` and ``.g``."""
+    n, g = int(n), int(g)
+    return pai.PaillierPublicKey(n=n, n_sq=n * n, g=g)
+
+
+def paillier_secret_key(n: int, g: int, lam: int,
+                        mu: int) -> pai.PaillierSecretKey:
+    """A Paillier secret key from the reference key's ``pub.n``,
+    ``pub.g``, ``lam`` and ``mu``."""
+    return pai.PaillierSecretKey(pub=paillier_public_key(n, g),
+                                 lam=int(lam), mu=int(mu))
+
+
 __all__ = ["cluster_map", "flat_index", "candidate_cache", "sharded_candidate_cache",
-           "secret_key"]
+           "secret_key", "paillier_public_key", "paillier_secret_key"]

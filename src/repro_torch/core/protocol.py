@@ -17,7 +17,8 @@ metered.
       yes -- Fetch{positions} -->          return docs        (Module 2b)
       no  -- k-of-k' OT        -->         oblivious docs     (Module 2c)
 
-Both parties compute on their device: ``cuda`` unless the caller passes
+Crypto backend: "rlwe" (default) or "paillier" (paper-faithful).  Both
+parties compute on their device: ``cuda`` unless the caller passes
 ``device="cpu"`` (the cloud computes where its index lives).  The
 perturbation draws from an explicit `torch.Generator` on the user's device.
 """
@@ -34,6 +35,7 @@ from repro_torch.core import distancedp, planner
 from repro_torch.core.planner import ProtocolPlan
 from repro_torch.crypto import backend as backends
 from repro_torch.crypto import ot as ot_mod
+from repro_torch.crypto import paillier as pai
 from repro_torch.crypto import rlwe
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.retrieval.index import FlatIndex
@@ -48,7 +50,7 @@ from repro_torch.retrieval.topk import distributed_topk
 class Request:
     perturbed: torch.Tensor        # e_k' (n,)
     kprime: int
-    enc_query: object              # rlwe.QueryCiphertext
+    enc_query: object              # rlwe.QueryCiphertext | list[int] (paillier)
     backend: str
 
     def nbytes(self, params: Optional[rlwe.RlweParams] = None,
@@ -61,7 +63,7 @@ class Request:
 @dataclasses.dataclass
 class Reply:
     candidate_ids: np.ndarray      # (k',) global ids (order defines positions)
-    enc_scores: object             # rlwe.ScoreCiphertexts
+    enc_scores: object             # rlwe.ScoreCiphertexts | list[int]
 
     def nbytes(self, params: Optional[rlwe.RlweParams] = None,
                key_bits: int = 2048) -> int:
@@ -99,7 +101,8 @@ class RemoteRagCloud:
     corpus-scale `rlwe.ShardedCandidateCache` (host pool, LRU hot shards on
     the device, per-request gather of the k' selected rows).
     ``use_candidate_cache=False`` packs the candidates per request instead
-    (the cold path).  All three are bit-identical."""
+    (the cold path).  All three are bit-identical.  A Paillier-only cloud
+    never builds the cache."""
 
     def __init__(self, index: FlatIndex, *,
                  rlwe_params: Optional[rlwe.RlweParams] = None,
@@ -138,6 +141,9 @@ class RemoteRagCloud:
             self, req, cand_ids)
         return Reply(candidate_ids=cand_ids, enc_scores=enc)
 
+    def register_paillier(self, pub: pai.PaillierPublicKey) -> None:
+        self._paillier_pub = pub
+
     def handle_fetch(self, cand_ids: np.ndarray, msg: FetchDirect) -> Documents:
         ids = [int(cand_ids[p]) for p in msg.positions]
         return Documents(docs=self.index.fetch_documents(ids))
@@ -173,6 +179,7 @@ class RemoteRagUser:
                  eps: Optional[float] = None, radius: Optional[float] = None,
                  backend: str = "rlwe",
                  rlwe_params: Optional[rlwe.RlweParams] = None,
+                 paillier_bits: int = 512,
                  rng: Optional[np.random.Generator] = None,
                  plan_kwargs: Optional[dict] = None,
                  plan: Optional[ProtocolPlan] = None,
@@ -181,11 +188,16 @@ class RemoteRagUser:
         self.backend = backend
         self.device = resolve_device(device)
         self.rng = rng or np.random.default_rng(0)
+        # Paillier randomness: a caller-provided rng makes key/nonce streams
+        # replayable (serve parity); with no rng the scheme keeps its
+        # `secrets` CSPRNG default instead of inheriting the seed-0 rng.
+        self._pai_rng = rng
         # `plan` injects a precomputed plan (repeat tenants skip the
         # Theorem-1 planning, host-side scipy work)
         self.plan = plan if plan is not None else planner.plan(
             n=n, N=N, k=k, eps=eps, radius=radius, **(plan_kwargs or {}))
         self.rlwe_params = rlwe_params or rlwe.RlweParams()
+        self.paillier_bits = paillier_bits
         self.sk = self.impl.keygen(self)
 
     # -- module 1 + 2a ------------------------------------------------------

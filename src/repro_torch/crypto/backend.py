@@ -1,8 +1,11 @@
 """The crypto-backend seam (PyTorch): one pipeline, interchangeable crypto.
 
-Counterpart of ``repro/crypto/backend.py``.  Only the RLWE backend is
-ported so far; ``"paillier"`` raises `UnknownBackend` until the Paillier
-slice lands.
+Counterpart of ``repro/crypto/backend.py``: the RLWE and Paillier
+backends behind one surface, so both schemes ride the same batching,
+bisection fault attribution, tracing and router scatter-gather.  Each
+computes on the device its caller names: the user's for encryption and
+the one-shot decryption, the cloud's for scoring, the engine's for the
+batched decryption.
 
 Method groups:
 
@@ -15,11 +18,15 @@ Method groups:
 from __future__ import annotations
 
 import abc
+import dataclasses
 from typing import List, Sequence
 
 import numpy as np
 
+from repro_torch.crypto import paillier as pai
+from repro_torch.crypto import paillier_vec as pvec
 from repro_torch.crypto import rlwe
+from repro_torch.device import DeviceLike
 
 
 class UnknownBackend(ValueError):
@@ -83,8 +90,11 @@ class CryptoBackend(abc.ABC):
         batch with ``.lanes()``."""
 
     @abc.abstractmethod
-    def decrypt_scores(self, sks, stacked) -> List[np.ndarray]:
-        """Batched decryption of a score batch or a per-lane list."""
+    def decrypt_scores(self, sks, stacked, *,
+                       device: DeviceLike = None) -> List[np.ndarray]:
+        """Batched decryption of a score batch or a per-lane list, on
+        ``device`` (``cuda`` unless the caller asks for ``cpu``) where the
+        keys do not fix it."""
 
 
 class RlweBackend(CryptoBackend):
@@ -134,11 +144,71 @@ class RlweBackend(CryptoBackend):
         return rlwe.encrypted_scores_batch_stacked(
             params, enc, packed, num_cands=kprime, n_dim=cand_rows.shape[-1])
 
-    def decrypt_scores(self, sks, stacked):
+    def decrypt_scores(self, sks, stacked, *, device=None):
+        # the keys live on their session's device
         return rlwe.decrypt_scores_batch(sks, stacked)
 
 
-_REGISTRY = {b.name: b for b in (RlweBackend(),)}
+@dataclasses.dataclass
+class PaillierScoreBatch:
+    """Per-lane Paillier score ciphertexts with the score-batch surface."""
+
+    cts: List[list]
+
+    def lanes(self) -> List[list]:
+        return self.cts
+
+
+class PaillierBackend(CryptoBackend):
+    """Paper-faithful Paillier, vectorized over lanes via `paillier_vec`
+    (RNS Montgomery tensor ops on the device) with per-lane object
+    fallback for oversized keys.  The sequential `score_request` keeps the
+    object path — it is the reference the batched path is tested
+    against."""
+
+    name = "paillier"
+
+    def keygen(self, user):
+        return pai.keygen(user.paillier_bits, rng=user._pai_rng)
+
+    def encrypt_query(self, user, e):
+        return pvec.encrypt_vector(user.sk.pub, e, user._pai_rng,
+                                   device=user.device)
+
+    def decrypt_reply(self, user, enc_scores):
+        return pai.decrypt_scores(user.sk, enc_scores)
+
+    def request_nbytes(self, enc_query, *, params, key_bits):
+        return len(enc_query) * 2 * key_bits // 8
+
+    def reply_nbytes(self, enc_scores, *, params, key_bits):
+        return len(enc_scores) * 2 * key_bits // 8
+
+    def wire_context(self, user):
+        return None, user.sk.pub.key_bits
+
+    def prepare_cloud(self, cloud, user):
+        cloud.register_paillier(user.sk.pub)
+
+    def score_request(self, cloud, req, cand_ids):
+        cand_rows = cloud.index.rows(cand_ids).cpu().numpy()
+        return pai.encrypted_scores(cloud._paillier_pub, req.enc_query,
+                                    cand_rows)
+
+    def score_candidates(self, *, cloud, users, enc, cand_ids, kprime,
+                         params, cache):
+        cand_rows = cloud.index.rows(cand_ids).reshape(len(users), kprime, -1)
+        return PaillierScoreBatch(pvec.encrypted_scores_batch(
+            [u.sk.pub for u in users], enc, list(cand_rows),
+            device=cloud.device))
+
+    def decrypt_scores(self, sks, stacked, *, device=None):
+        lanes = stacked.lanes() if isinstance(stacked, PaillierScoreBatch) \
+            else list(stacked)
+        return pvec.decrypt_scores_batch(sks, lanes, device=device)
+
+
+_REGISTRY = {b.name: b for b in (RlweBackend(), PaillierBackend())}
 
 
 def get_backend(name: str) -> CryptoBackend:
@@ -150,7 +220,7 @@ def get_backend(name: str) -> CryptoBackend:
 
 
 def available() -> tuple:
-    """Registered backend names."""
+    """Registered backend names (the launcher builds --backend from this)."""
     return tuple(sorted(_REGISTRY))
 
 
@@ -159,8 +229,9 @@ def scores_backend(enc_scores) -> CryptoBackend:
     not carry a backend tag (`protocol.Reply`)."""
     if isinstance(enc_scores, rlwe.ScoreCiphertexts):
         return _REGISTRY["rlwe"]
-    return get_backend("paillier")
+    return _REGISTRY["paillier"]
 
 
-__all__ = ["CryptoBackend", "RlweBackend", "UnknownBackend", "get_backend",
+__all__ = ["CryptoBackend", "RlweBackend", "PaillierBackend",
+           "PaillierScoreBatch", "UnknownBackend", "get_backend",
            "available", "scores_backend"]

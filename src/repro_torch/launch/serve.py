@@ -12,6 +12,8 @@ line.
 `... --device cpu` runs the plain PyTorch path on the CPU (the default is
 ``cuda``, which launches the port's CUDA kernels).
 `... --no-batch` runs the sequential one-query-at-a-time comparison path.
+`... --backend paillier` serves with the paper's Paillier scheme (512-bit
+keys; the vectorized RNS Montgomery crypto on the device).
 `... --replicas N` serves through the scale-out `ReplicaRouter` (N engine
 replicas over contiguous corpus slices, scatter-gather top-k'; results
 bit-identical to one engine) and prints the router summary.
@@ -58,9 +60,8 @@ def main(argv=None) -> None:
     ap.add_argument("--radius", type=float, default=0.05)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--tenants", type=int, default=4)
-    ap.add_argument("--backend", default="rlwe",
-                    help="crypto backend (only rlwe is ported; any other "
-                         "name raises UnknownBackend)")
+    ap.add_argument("--backend", choices=crypto_backend.available(),
+                    default="rlwe")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the CUDA kernels) or cpu (the "
                          "plain PyTorch path)")
@@ -114,7 +115,6 @@ def main(argv=None) -> None:
         ap.error("--ivf-clusters must be >= 1")
     if args.nprobe is not None and args.ivf_clusters is None:
         ap.error("--nprobe needs --ivf-clusters")
-    crypto_backend.get_backend(args.backend)    # raises UnknownBackend
     device = resolve_device(args.device)
     print(json.dumps({"device": {
         "type": device.type,

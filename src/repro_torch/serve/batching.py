@@ -10,6 +10,9 @@ to the unbatched call:
   * encrypted_scores_cached_batch / decrypt_scores_batch
                         the RLWE cloud/user crypto with a leading batch
                         axis (re-exported from `repro_torch.crypto.rlwe`)
+  * encrypted_scores_paillier_batch / decrypt_scores_paillier_batch
+                        the vectorized Paillier twins (re-exported from
+                        `repro_torch.crypto.paillier_vec`)
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.core import distancedp
 from repro_torch.crypto import backend as crypto_backend
+from repro_torch.crypto import paillier_vec
 from repro_torch.crypto import rlwe
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.retrieval.topk import SearchResult, search_view
@@ -64,10 +68,14 @@ CandidateCacheConfig = rlwe.CandidateCacheConfig
 ShardedCandidateCache = rlwe.ShardedCandidateCache
 get_backend = crypto_backend.get_backend
 UnknownBackend = crypto_backend.UnknownBackend
+encrypted_scores_paillier_batch = paillier_vec.encrypted_scores_batch
+decrypt_scores_paillier_batch = paillier_vec.decrypt_scores_batch
 
 
 __all__ = ["perturb_batch", "topk_batch", "pack_candidates_batch",
            "encrypted_scores_batch", "encrypted_scores_batch_stacked",
            "encrypted_scores_cached_batch", "decrypt_scores_batch",
            "CandidateCacheConfig", "ShardedCandidateCache",
-           "get_backend", "UnknownBackend"]
+           "get_backend", "UnknownBackend",
+           "encrypted_scores_paillier_batch",
+           "decrypt_scores_paillier_batch"]

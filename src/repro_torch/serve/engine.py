@@ -1013,7 +1013,7 @@ class ServeEngine:
                        if full_stack and len(ls) == len(alive)
                        else [cts[lane] for lane in ls])
             return impl.decrypt_scores([users[lane].sk for lane in ls],
-                                       stacked)
+                                       stacked, device=self.device)
 
         with tr.span("decrypt", batch_id=bid, lanes=len(alive)):
             scores, bad = _bisect_lanes(decrypt, alive, tracer=tr,

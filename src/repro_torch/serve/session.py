@@ -1,10 +1,11 @@
 """Per-tenant sessions and the protocol-plan cache (PyTorch port).
 
 Counterpart of ``repro/serve/session.py``.  A Session owns everything the
-protocol calls "the user": the tenant's RLWE secret key (on the
-manager's device), its numpy RNG stream, and its ProtocolPlan.  The RNG
-stream is the reference's (`tenant_seed` under deterministic seeds), so
-two managers, one per package, replay bit-identical keys and ciphertexts.
+protocol calls "the user": the tenant's secret key material (RLWE, on
+the manager's device, or Paillier), its numpy RNG stream, and its
+ProtocolPlan.  The RNG stream is the reference's (`tenant_seed` under
+deterministic seeds), so two managers, one per package, replay
+bit-identical keys and ciphertexts.
 Plans are pure functions of the planning knobs, so a process-wide PlanCache
 lets repeat tenants (or many tenants with the same service tier) skip the
 Theorem-1 bisection + scipy quantile work entirely.
@@ -127,7 +128,7 @@ class SessionManager:
     def open(self, tenant: str, *, n: int, N: int, k: int,
              eps: Optional[float] = None, radius: Optional[float] = None,
              backend: str = "rlwe", seed: Optional[int] = None,
-             epoch: int = 0,
+             paillier_bits: int = 512, epoch: int = 0,
              plan_kwargs: Optional[dict] = None) -> Session:
         """Create (or return) the tenant's session.  Keygen happens here,
         once; the plan comes from the shared cache.  Re-opening an existing
@@ -135,7 +136,7 @@ class SessionManager:
         being used silently (e.g. a stale, weaker privacy budget).
         ``epoch`` stamps the plan-cache entry with the corpus epoch the
         caller planned against (see `PlanCache`)."""
-        knobs = (n, N, k, eps, radius, backend, seed,
+        knobs = (n, N, k, eps, radius, backend, seed, paillier_bits,
                  tuple(sorted((plan_kwargs or {}).items())))
         if tenant in self._sessions:
             sess = self._sessions[tenant]
@@ -151,7 +152,8 @@ class SessionManager:
         rng = np.random.default_rng(seed)  # seed None -> OS entropy
         user = protocol.RemoteRagUser(
             n=n, N=N, k=k, backend=backend, plan=plan,
-            rlwe_params=self.rlwe_params, rng=rng, device=self.device)
+            rlwe_params=self.rlwe_params, paillier_bits=paillier_bits,
+            rng=rng, device=self.device)
         sess = Session(tenant=tenant, user=user,
                        created_at=time.monotonic(), knobs=knobs)
         self._sessions[tenant] = sess

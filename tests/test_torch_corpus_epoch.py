@@ -420,9 +420,22 @@ def _sessions():
                           device="cpu")
 
 
-def _open_all(srv, *, N=N_DOCS):
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the Paillier path's many small CPU ops:
+    beside other busy test workers a thread-parallel region costs
+    milliseconds an op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _open_all(srv, *, N=N_DOCS, backend="rlwe"):
+    kw = {"paillier_bits": 256} if backend == "paillier" else {}
     for t in TENANTS:
-        srv.open_session(t, n=DIM, N=N, k=K, plan_kwargs={"kprime": 8})
+        srv.open_session(t, n=DIM, N=N, k=K, plan_kwargs={"kprime": 8},
+                         backend=backend, **kw)
 
 
 def _submit_all(srv, queries):
@@ -475,20 +488,21 @@ def test_plan_cache_epoch_stamp_and_refresh_corpus(queries):
     eng.close()
 
 
-_FLAT = {}      # max_batch -> the flat engine's results before the ingest
+_FLAT = {}      # (max_batch, backend) -> the flat engine's results before
+                # the ingest
 
 
-def _flat_reference(queries, max_batch):
-    if max_batch not in _FLAT:
+def _flat_reference(queries, max_batch, backend):
+    if (max_batch, backend) not in _FLAT:
         idx = _build()
         eng = ServeEngine(idx, config=EngineConfig(max_batch=max_batch,
                                                    max_wait_s=30.0),
                           sessions=_sessions())
-        _open_all(eng)
+        _open_all(eng, backend=backend)
         _submit_all(eng, queries)
-        _FLAT[max_batch] = eng.drain()
+        _FLAT[max_batch, backend] = eng.drain()
         eng.close()
-    return _FLAT[max_batch]
+    return _FLAT[max_batch, backend]
 
 
 @pytest.mark.parametrize("max_batch", [1, 3, 8])
@@ -497,7 +511,20 @@ def test_differential_sweep(queries, max_batch, num_replicas):
     """A router over the IVF corpus (cluster-aligned slices, engines at
     nprobe = all) equals the flat engine, and a tail ingested after the
     router pinned its view changes nothing."""
-    want = _flat_reference(queries, max_batch)
+    _differential_sweep(queries, max_batch, "rlwe", num_replicas)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("max_batch", [1, 3, 8])
+@pytest.mark.parametrize("num_replicas", [1, 2, 4])
+def test_differential_sweep_paillier(queries, max_batch, num_replicas):
+    """The same sweep on the Paillier backend (the reference sweeps
+    {rlwe, paillier})."""
+    _differential_sweep(queries, max_batch, "paillier", num_replicas)
+
+
+def _differential_sweep(queries, max_batch, backend, num_replicas):
+    want = _flat_reference(queries, max_batch, backend)
     idx = _build()
     rt = ReplicaRouter(idx, config=RouterConfig(
         num_replicas=num_replicas,
@@ -505,7 +532,7 @@ def test_differential_sweep(queries, max_batch, num_replicas):
                             nprobe=NUM_CLUSTERS)), sessions=_sessions())
     starts = {int(s) for s in idx.cluster_map.starts}
     assert all(h.sl.start in starts for h in rt.replicas)
-    _open_all(rt)
+    _open_all(rt, backend=backend)
     new_emb, new_docs = _tail(np.random.default_rng(SEED + 2))
     idx.ingest(new_emb, documents=new_docs, normalize=False)
     assert idx.epoch == 1 and rt.view.epoch == 0
@@ -567,7 +594,7 @@ def test_ivf_router_matches_reference_engine(queries, monkeypatch):
     got = rt.drain()
     rt.close()
     # the router scans every cluster: its candidates hold the routed ones
-    _assert_identical(_flat_reference(queries, 3), got)
+    _assert_identical(_flat_reference(queries, 3, "rlwe"), got)
 
 
 def test_router_replan_preserves_merge_order(queries):

@@ -647,3 +647,80 @@ def test_router_two_replicas_equals_engine_on_card(cuda, ivf):
         assert a.request_id == b.request_id and a.docs == b.docs
         assert a.ids.tolist() == b.ids.tolist()
         assert a.transcript.total_bytes == b.transcript.total_bytes
+
+
+# -- the Paillier backend's bignum ops on the card ---------------------------
+
+
+def _bignum_ctx(key_bits):
+    """n^2 of a seeded Paillier key: 46 channels at 512 bits, the budget's
+    64-channel edge at 726 bits."""
+    from repro_torch.crypto import paillier as pai
+    from repro_torch.kernels.bignum import ref as bref
+
+    sk = pai.keygen(key_bits, rng=np.random.default_rng(key_bits))
+    return bref.for_modulus(sk.pub.n_sq)
+
+
+@pytest.mark.parametrize("key_bits,channels", [(512, 46), (726, 64)])
+def test_bignum_ops_on_card_equal_cpu(cuda, key_bits, channels):
+    """mont_mul, the windowed exponentiation and product_reduce on CUDA
+    float64 tensors (cuBLAS matmuls) equal the CPU path bit for bit: every
+    value is an exact integer below 2^53."""
+    from repro_torch.kernels.bignum import ops as bops
+    from repro_torch.kernels.bignum import ref as bref
+
+    ctx = _bignum_ctx(key_bits)
+    assert ctx.system.s == channels
+    rng = np.random.default_rng(3)
+    vals = [int(rng.integers(0, 2**62)) ** 20 % ctx.modulus
+            for _ in range(3 * 40 * 9)]
+    x = bref.to_rns(ctx, [bref.to_mont(ctx, v) for v in vals]).reshape(
+        3, 40, 9, -1)
+    outs = {}
+    for dev in (torch.device("cpu"), cuda):
+        C = bops.make_consts(ctx.system, [ctx] * 3, 3, device=dev)
+        C2 = bops.make_consts(ctx.system, [ctx] * 3, 2, device=dev)
+        t = torch.from_numpy(x).to(dev)
+        a = t[:, :, 0]
+        digits = torch.from_numpy(bops.to_digits(
+            [ctx.modulus >> 3] * 120, 4).reshape(3, 40, -1)).to(dev)
+        outs[dev.type] = (
+            bops.mont_mul(t, t, C),
+            bops.mont_exp_digits(bops.pow_table(a, C2, 4), digits, C2, 4),
+            bops.product_reduce(t, C),
+            bops.product_reduce(t[:, :, :5], C))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(got.cpu(), want)
+
+
+def test_paillier_scores_on_card_equal_object_path(cuda):
+    """The vectorized Paillier encrypt, score and decrypt on the card equal
+    the object path's integers under shared seeds."""
+    from repro_torch.crypto import paillier as pai
+    from repro_torch.crypto import paillier_vec as pvec
+
+    keys = [pai.keygen(512, rng=np.random.default_rng(60 + i))
+            for i in range(3)]
+    rng = np.random.default_rng(61)
+    q = rng.normal(size=(3, 96))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    cands = rng.normal(size=(3, 17, 96))
+    cands /= np.linalg.norm(cands, axis=-1, keepdims=True)
+    enc = [pvec.encrypt_vector(k.pub, e, rng=np.random.default_rng(70 + i),
+                               device=cuda)
+           for i, (k, e) in enumerate(zip(keys, q))]
+    for i, (k, e) in enumerate(zip(keys, q)):
+        assert enc[i] == pai.encrypt_vector(k.pub, e,
+                                            rng=np.random.default_rng(70 + i))
+    got = pvec.encrypted_scores_batch(
+        [k.pub for k in keys], enc, [torch.from_numpy(c).to(cuda)
+                                     for c in cands],
+        rngs=[np.random.default_rng(80 + i) for i in range(3)], device=cuda)
+    want = [pai.encrypted_scores(k.pub, e, c, rng=np.random.default_rng(80 + i))
+            for i, (k, e, c) in enumerate(zip(keys, enc, cands))]
+    assert got == want
+    dec = pvec.decrypt_scores_batch(keys, got, device=cuda)
+    for k, ct, d, c, e in zip(keys, got, dec, cands, q):
+        np.testing.assert_array_equal(d, pai.decrypt_scores(k, ct))
+        np.testing.assert_allclose(d, c @ e, atol=2e-3)

@@ -1,5 +1,6 @@
 """The port's `ServeEngine` against the JAX package's, and its own
-batched-vs-sequential, fault-isolation, trigger and launcher contracts.
+batched-vs-sequential, fault-isolation, trigger and launcher contracts, on
+the RLWE and on the Paillier backend.
 
 `jax.random` cannot be replayed in torch, so the reference-parity tests
 patch the port's `serve.batching.perturb_batch` (inside the test only) to
@@ -7,7 +8,12 @@ return the perturbed embeddings the JAX engine's `perturb_batch` gives for
 the same request keys: a port request's generator seed is the JAX request's
 `PRNGKey` seed.  Tenant keys and encryption noise come from the same numpy
 streams (`tenant_seed`), so ids, documents and wire bytes must match per
-request, on the dense and on the sharded cache."""
+request, on the dense and on the sharded cache.  The reference's
+vectorized Paillier cannot run in this process (it needs
+``jax.experimental.enable_x64``), so the Paillier engine is held to the
+reference's sequential round with the query encrypted by the reference's
+object path, which its own tests hold bit-identical to the vectorized
+one."""
 
 import dataclasses
 import io
@@ -21,6 +27,8 @@ import torch
 
 import jax
 
+from repro.core import protocol as jp
+from repro.crypto import paillier as jpai
 from repro.crypto import rlwe as jr
 from repro.data import synth
 from repro.retrieval.index import FlatIndex as JFlatIndex
@@ -29,8 +37,8 @@ from repro.serve import ServeEngine as JServeEngine
 from repro.serve import batching as jbatching
 from repro.serve.session import SessionManager as JSessionManager
 from repro_torch import convert
+from repro_torch.crypto import paillier_vec as pvec
 from repro_torch.crypto import rlwe as tr
-from repro_torch.crypto.backend import UnknownBackend
 from repro_torch.launch import serve as launch_serve
 from repro_torch.serve import EngineConfig, ServeEngine, admission
 from repro_torch.serve import batching
@@ -59,7 +67,22 @@ def _index(corpus):
     return convert.flat_index(np.asarray(jidx.embeddings), docs, device="cpu")
 
 
-def _build(index, *, sequential=False, max_batch=8, clock=None, **kw):
+PAILLIER = {"backend": "paillier", "paillier_bits": 256}
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the Paillier path's many small CPU ops:
+    beside other busy test workers a thread-parallel region costs
+    milliseconds an op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _build(index, *, sequential=False, max_batch=8, clock=None,
+           open_kw=None, **kw):
     extra = {"clock": clock} if clock is not None else {}
     eng = ServeEngine(
         index, config=EngineConfig(max_batch=max_batch, max_wait_s=30.0,
@@ -67,7 +90,8 @@ def _build(index, *, sequential=False, max_batch=8, clock=None, **kw):
         sessions=SessionManager(rlwe_params=TP, deterministic_seeds=True,
                                 device="cpu"), **extra)
     for t in TENANTS:
-        eng.open_session(t, n=DIM, N=N_DOCS, k=K, radius=0.05)
+        eng.open_session(t, n=DIM, N=N_DOCS, k=K, radius=0.05,
+                         **(open_kw or {}))
     return eng
 
 
@@ -312,6 +336,117 @@ def test_sharded_engine_traces_and_closes(corpus):
     assert worker is None or not worker.is_alive()
 
 
+# -- the Paillier backend ----------------------------------------------------
+
+_PAILLIER = {}      # "seq" / "batched" -> the Paillier engine runs' results
+
+
+def _paillier_run(corpus, name):
+    if name not in _PAILLIER:
+        kw = (dict(sequential=True, max_batch=1) if name == "seq"
+              else dict(max_batch=8))
+        eng, _PAILLIER[name] = _run(_index(corpus), corpus[2],
+                                    open_kw=PAILLIER, **kw)
+        eng.close()
+    return _PAILLIER[name]
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_paillier_engine_matches_reference(corpus, monkeypatch):
+    """Per request, the batched Paillier engine equals the reference's
+    sequential round (ids, documents, wire bytes) with the reference's
+    perturbations and the same tenant keys and rng streams."""
+    jidx, _, queries = corpus
+    jmgr = JSessionManager(rlwe_params=JP, deterministic_seeds=True)
+    jusers = [jmgr.open(TENANTS[i % len(TENANTS)], n=DIM, N=N_DOCS, k=K,
+                        radius=0.05, **PAILLIER).user for i in range(N_REQ)]
+    pert = jbatching.perturb_batch([jax.random.PRNGKey(i)
+                                    for i in range(N_REQ)], queries,
+                                   [u.plan.eps for u in jusers])
+    jcloud = jp.RemoteRagCloud(jidx, rlwe_params=JP)
+    want = []
+    for i, ju in enumerate(jusers):
+        # the reference's object-path twin of its vectorized encryptor:
+        # the same draws from the tenant's stream, the same integers
+        enc = jpai.encrypt_vector(ju.sk.pub, np.asarray(queries[i],
+                                                        np.float64),
+                                  ju._pai_rng)
+        jreq = jp.Request(perturbed=np.asarray(pert[i]),
+                          kprime=ju.plan.kprime, enc_query=enc,
+                          backend="paillier")
+        ju.impl.prepare_cloud(jcloud, ju)
+        jrep = jcloud.handle_request(jreq)
+        want.append(jp.finish_request(ju, jcloud, jreq, jrep,
+                                      ju.top_positions(jrep)))
+
+    monkeypatch.setattr(batching, "perturb_batch", _jax_perturb)
+    pvec.reset_counters()
+    eng, got = _run(_index(corpus), queries, open_kw=PAILLIER)
+    eng.close()
+    assert [r.batch_size for r in got] == [N_REQ] * N_REQ
+    # encrypt per lane, one score and one decrypt call for the batch
+    assert pvec.counters == {"vectorized": 3 * N_REQ, "object": 0}
+    for (docs, ids, tr_), r in zip(want, got):
+        assert r.ok and r.ids.tolist() == np.asarray(ids).tolist()
+        assert r.docs == docs
+        for f in ("total_bytes", "request_bytes", "reply_bytes"):
+            assert getattr(r.transcript, f) == getattr(tr_, f)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_paillier_batched_matches_sequential(corpus):
+    """The Paillier backend rides the same staged pipeline (vectorized RNS
+    crypto batched, the object path sequentially): the same docs, ids and
+    wire bytes per request, and the plaintext top-k."""
+    seq = _paillier_run(corpus, "seq")
+    got = _paillier_run(corpus, "batched")
+    assert [r.batch_size for r in seq] == [1] * N_REQ
+    assert [r.batch_size for r in got] == [N_REQ] * N_REQ
+    emb = np.asarray(corpus[0].embeddings)
+    for rs, rb in zip(seq, got):
+        _same(rs, rb)
+        oracle = np.argsort(-(emb @ corpus[2][rb.request_id]), kind="stable")
+        assert set(rb.ids.tolist()) == set(oracle[:K].tolist())
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_paillier_poisoned_lane_isolated(corpus):
+    """One persistently poisoned lane in a Paillier batch of 8 errors
+    alone; its 7 batchmates equal the sequential path and no healthy lane
+    is encrypted twice — the RLWE contract."""
+    want = _paillier_run(corpus, "seq")
+    eng = _build(_index(corpus), open_kw=PAILLIER)
+    eng.cloud.handle_fetch = _PoisonIds(eng.cloud, want[0].ids.tolist())
+    for i, q in enumerate(corpus[2]):
+        eng.submit(TENANTS[i % len(TENANTS)], q, key=i)
+    got = eng.drain()
+    eng.close()
+    bad = [r for r in got if not r.ok]
+    assert [r.request_id for r in bad] == [0] and bad[0].quarantined
+    for rs, rb in zip(want[1:], got[1:]):
+        assert rb.ok and not rb.quarantined
+        _same(rs, rb)
+    m = eng.metrics
+    assert m.quarantined_lanes == 1 and m.error_results == 1
+    assert m.lane_encryptions == N_REQ + 1 and m.healthy_reencryptions == 0
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_paillier_traced_run_covers_same_stages(corpus):
+    """A traced Paillier batch emits the RLWE stage spans, its score spans
+    carry backend="paillier", and tracing changes nothing."""
+    base = _paillier_run(corpus, "batched")
+    eng, got = _run(_index(corpus), corpus[2], open_kw=PAILLIER, trace=True)
+    eng.close()
+    for rb, rt in zip(base, got):
+        _same(rb, rt)
+    spans = eng.tracer.spans()
+    assert {"queue_wait", "dispatch", "perturb", "topk", "encrypt", "score",
+            "decrypt", "finish"} <= {s.name for s in spans}
+    score = [s for s in spans if s.name == "score"]
+    assert score and all(s.attrs.get("backend") == "paillier" for s in score)
+
+
 def test_launch_serve_main_cpu():
     buf = io.StringIO()
     with redirect_stdout(buf):
@@ -343,5 +478,14 @@ def test_launch_serve_main_cpu():
     assert len(grown) == 4 and all("error" not in x for x in grown)
     with pytest.raises(SystemExit):
         launch_serve.main(base + ["--nprobe", "2"])    # needs --ivf-clusters
-    with pytest.raises(UnknownBackend):
-        launch_serve.main(["--device", "cpu", "--backend", "paillier"])
+    # --backend takes its choices from the registry: paillier serves, an
+    # unknown name is refused
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        launch_serve.main(base + ["--backend", "paillier"])
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+    served = [x for x in lines if "recall" in x]
+    assert len(served) == 4 and all(x["recall"] == 1.0 for x in served)
+    assert lines[-1]["num_batches"] == 2
+    with pytest.raises(SystemExit):
+        launch_serve.main(base + ["--backend", "ecc"])

@@ -183,12 +183,15 @@ def test_cold_path_cloud_matches_cached():
 
 
 def test_only_rlwe_backend_is_registered():
-    assert tbackend.available() == ("rlwe",)
+    """The registry, as the reference's: RLWE and Paillier; any other
+    name raises `UnknownBackend`."""
+    assert tbackend.available() == ("paillier", "rlwe")
+    assert tbackend.get_backend("paillier").name == "paillier"
     with pytest.raises(tbackend.UnknownBackend):
-        tbackend.get_backend("paillier")
+        tbackend.get_backend("ecc")
     with pytest.raises(tbackend.UnknownBackend):
         protocol.RemoteRagUser(n=8, N=100, k=2, radius=0.05,
-                               backend="paillier", device="cpu")
+                               backend="ecc", device="cpu")
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

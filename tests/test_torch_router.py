@@ -3,8 +3,8 @@ one engine over the whole corpus and with the JAX package's engine, the
 scatter-gather merge's determinism, replica fault injection with zero
 lost requests, and typed admission errors through the router.
 
-Mirrors the RLWE cases of the reference's ``tests/test_router.py``, at its
-sizes (1500 docs x 64, three planted copies of row 100 across every
+Mirrors the reference's ``tests/test_router.py`` (RLWE, and the Paillier
+bit-identity case), at its sizes (1500 docs x 64, three planted copies of row 100 across every
 replica boundary).  Several of those reference cases are red on the CPU,
 where XLA's float32 dot gives a row a score that depends on the matrix it
 sits in; here a score depends on its (query, row) pair alone, so the
@@ -62,16 +62,29 @@ def corpus():
     return index, emb, queries
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the Paillier path's many small CPU ops:
+    beside other busy test workers a thread-parallel region costs
+    milliseconds an op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sessions():
     return SessionManager(rlwe_params=TP, deterministic_seeds=True,
                           device="cpu")
 
 
-def _open_all(srv, *, kprime=None):
+def _open_all(srv, *, kprime=None, backend="rlwe"):
     plan_kw = ({"plan_kwargs": {"kprime": kprime}} if kprime
                else {"radius": 0.05})
+    if backend == "paillier":
+        plan_kw["paillier_bits"] = 256
     for t in TENANTS:
-        srv.open_session(t, n=DIM, N=N_DOCS, k=K, **plan_kw)
+        srv.open_session(t, n=DIM, N=N_DOCS, k=K, backend=backend, **plan_kw)
 
 
 def _submit_all(srv, queries):
@@ -83,19 +96,20 @@ def _by_rid(results):
     return {r.request_id: r for r in results}
 
 
-_SINGLE = {}    # max_batch -> the single engine's results
+_SINGLE = {}    # (max_batch, backend, requests) -> the single engine's results
 
 
-def _single_run(index, queries, *, max_batch=8):
-    if max_batch not in _SINGLE:
+def _single_run(index, queries, *, max_batch=8, backend="rlwe"):
+    key = (max_batch, backend, len(queries))
+    if key not in _SINGLE:
         eng = ServeEngine(index, config=EngineConfig(max_batch=max_batch,
                                                      max_wait_s=30.0),
                           sessions=_sessions())
-        _open_all(eng)
+        _open_all(eng, backend=backend)
         _submit_all(eng, queries)
-        _SINGLE[max_batch] = eng.drain()
+        _SINGLE[key] = eng.drain()
         eng.close()
-    return _SINGLE[max_batch]
+    return _SINGLE[key]
 
 
 def _router(index, *, num_replicas, max_batch=8, engine_kw=None,
@@ -147,6 +161,24 @@ def test_router_bit_identical_to_single_engine(corpus, num_replicas,
     assert m["quarantines"] == [] and m["late_dropped"] == 0
     assert m["scatter_calls"] > 0 and m["fallback_scans"] == 0
     assert m["slice_scans"] == m["scatter_calls"] * num_replicas
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_router_bit_identical_paillier_backend(corpus):
+    """The Paillier backend through the router: per request equal to one
+    engine, with the replicas' batches scored on their own threads."""
+    index, _, queries = corpus
+    want = _single_run(index, queries[:4], max_batch=4, backend="paillier")
+    rt = ReplicaRouter(index, config=RouterConfig(
+        num_replicas=2, engine=EngineConfig(max_batch=4, max_wait_s=30.0)),
+        sessions=_sessions())
+    _open_all(rt, backend="paillier")
+    _submit_all(rt, queries[:4])
+    got = rt.drain()
+    rt.close()
+    assert len(got) == 4 and all(r.ok for r in got)
+    _assert_results_identical(want, got)
+    assert got[3].ids.tolist() == [100, 400, 800, 1200]
 
 
 def _jax_perturb(generators, E, epss, *, device=None):
