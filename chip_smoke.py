@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--n-docs N] [--seed S]
 
-At the paper's service config (``repro/configs/remoterag.py``: 10^6
-documents of dimension 768, k = 5, the k' = 160 planner knob, the default
-RLWE ring) it
+At the paper's service config (``repro_torch/configs/remoterag.py``, the
+counterpart of ``repro/configs/remoterag.py``: 10^6 documents of dimension
+768, k = 5, the k' = 160 planner knob, the default RLWE ring) it
 
   1. builds every CUDA kernel from ``src/repro_torch/csrc`` (one
      extension, ``torch.utils.cpp_extension.load``);
@@ -69,9 +69,36 @@ RLWE ring) it
      replays its 16 requests bit for bit, the tail shard equal to the plain
      pack, (e) after ``refresh_corpus`` and ``router.replan()``, 8 queries
      near tail docs served with recall@5 = 1.0 and the 4-replica router
-     equal to the single engine at epoch 1.
+     equal to the single engine at epoch 1;
+ 10. frees that state and drives the service's text front end at full
+     width (the ``text`` phase): 2^17 passages built as
+     ``repro_torch/examples/private_rag_serve.py`` builds them (6 topics
+     plus 12 random words), tokenized by ``HashTokenizer(32768)`` at 32
+     tokens, embedded on the card in batches of 1024 by the encoder of
+     ``encoder_config(dim=768)`` (4 layers, 6 heads x 128, d_ff 3072,
+     seeded weights, float32 with TF32 off), indexed with its dense
+     candidate cache; 16 text queries of 4 tenants (radius 0.05, the
+     planned k') through a ``ServeEngine`` (max_batch 8), batched and
+     sequential, must agree bit for bit (ids, documents, wire bytes) and
+     serve the plaintext top-5 over the port's embeddings up to rows
+     within 2^-12 of the 5th score (the RLWE fixed point may swap those);
+     whether the true top-5 lay inside each request's k' candidates
+     (Theorem 1 assumes a uniform corpus), recall@5, the 5th/6th gaps and
+     the embed, tokenise and cache-build seconds are printed, not gated;
+     score-top-k is timed at (1 and 8, 2^17) with kk = k';
+ 11. the Fig. 4 inversion attacks (the ``attack`` phase): at the
+     benchmark's full setting (``token_corpus`` 3000 x 768, vocab 1024,
+     20 tokens, 15 paraphrases; 50 queries; radii 0 to 4) the exact-
+     recovery, NN F1 and linear-decoder curves on the card and through
+     the plain CPU path from a copy of the generator: NN decode ids equal
+     up to rows within 1e-5, linear curves within 0.02, exact recovery 1.0
+     at r = 0 and every curve non-increasing within 0.05; then the same
+     attacks over 100,000 aux documents x 768 at vocab 4096 with 256
+     queries on the card, walls printed; score-top-k is timed at the two
+     decode shapes, (400, 3000) and (2048, 100,000) with kk = 1.
 
-Each path (one-at-a-time, batch, each engine and router run) runs with
+Each path (one-at-a-time, batch, each engine and router run, the text
+pack and engines, each attack setting on the card) runs with
 the launch counts set to 0 just before it and read just after, and every
 kernel of the path must have launched; the kernels line gives each
 kernel's launches over the paths, by path and by shape, and launches x
@@ -127,6 +154,26 @@ PAILLIER_KERNELS = ("score_topk",)
 CONSCIOUS_KERNELS = ("ntt_fwd", "ntt_inv", "pointwise_mul")
 PAILLIER_BITS, FALLBACK_BITS = 512, 1024   # tenants' keys; the object tier
 CONSCIOUS_ROWS = 512         # rows of the privacy-conscious baselines
+# text phase: the service's text front end at full width (the embedder of
+# encoder_config(dim=768): 4 layers, 6 heads x 128, d_ff 3072, vocab 32768)
+# over 2^17 passages, cut from the config's 10^6 documents for the
+# script's time
+TEXT_DOCS, TEXT_SEQ, TEXT_QUERIES = 2**17, 32, 16
+EMBED_BATCH = 1024           # passages embedded per call
+TEXT_TIE = 2.0 ** -12        # plaintext gap the RLWE fixed point may swap
+# attack phase: Fig. 4's full setting (benchmarks/fig4_privacy.py) and
+# the aux corpus at scale
+RADII = (0.0, 0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 4.0)
+FIG4_DOCS, FIG4_QUERIES = 3000, 50
+AUX_DOCS, AUX_VOCAB, AUX_QUERIES = 100_000, 4096, 256
+ATTACK_KERNELS = ("score_topk",)
+
+
+def paper():
+    """The paper's service config, ``repro_torch/configs/remoterag.py``
+    (N_DOCS, DIM, K, KPRIME, RLWE)."""
+    from repro_torch.configs import remoterag
+    return remoterag
 
 
 def emit(obj) -> None:
@@ -226,6 +273,25 @@ def call_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def timed_row(torch, err, kern, plain, nbytes, ops, rate, library=None,
+              plain_call=False, **extra) -> dict:
+    """One timed row: ``kern``/``plain``/``library`` are zero-argument
+    callables; the kernel is timed in bursts of BURST back-to-back calls
+    (`time_ms`), the plain version and the library call one call at a time.
+    ``plain_call``: the plain version enqueues more launches than the
+    device's queue holds behind `time_ms`'s spin, so it is timed between
+    events around one call (`call_ms`: device time plus host gaps)."""
+    b_ms, b_by = bound(nbytes, ops, rate)
+    lib_ms = (time_ms(torch, library, PLAIN_REPS)
+              if library is not None else None)
+    plain_ms = (call_ms(torch, plain, PLAIN_REPS) if plain_call
+                else time_ms(torch, plain, PLAIN_REPS))
+    return dict(max_abs_err=err, ms=time_ms(torch, kern, REPS, BURST),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, call_ms=call_ms(torch, kern, REPS),
+                **(dict(plain_timer="call") if plain_call else {}), **extra)
+
+
 def int_err(got, want) -> int:
     """max |got - want| over a kernel's integer outputs (tensor or tuple)."""
     pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
@@ -241,8 +307,6 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
     from repro_torch.kernels.ntt import fused as kfused
     from repro_torch.kernels.ntt import ntt as kntt
     from repro_torch.kernels.ntt import ref as nref
-    from repro_torch.kernels.scoretopk import ref as sref
-    from repro_torch.kernels.scoretopk import scoretopk as kscore
 
     dev = torch.device("cuda")
     gen = np.random.default_rng(args.seed + 7)
@@ -260,16 +324,8 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
         return torch.from_numpy(gen.integers(0, q, size=shape).astype(
             np.int32)).to(dev)
 
-    def measure(err, kern, plain, nbytes, ops, rate, library=None,
-                **extra) -> dict:
-        """``kern``/``plain``/``library``: zero-argument callables."""
-        b_ms, b_by = bound(nbytes, ops, rate)
-        lib_ms = (time_ms(torch, library, PLAIN_REPS)
-                  if library is not None else None)
-        return dict(max_abs_err=err, ms=time_ms(torch, kern, REPS, BURST),
-                    plain_ms=time_ms(torch, plain, PLAIN_REPS),
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                    call_ms=call_ms(torch, kern, REPS), **extra)
+    def measure(*a, **kw) -> dict:
+        return timed_row(torch, *a, **kw)
 
     def entry(name, source, replaces, measured, *others):
         """One kernel's line: ``measured`` at its main-path shape, then the
@@ -431,59 +487,72 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
                           (bsz, full_rows // ROUTER_REPLICAS, plan.kprime),
                           (1, full_rows, plan.k), (1, full_rows, plan.kprime),
                           (bsz, full_rows, plan.kprime)):
-        emb = index.embeddings[:min(sub, full_rows)]
-        n_rows, dim = emb.shape
-        tile, kk = min(2048, n_rows), min(k_sel, 2048, n_rows)
-        num_tiles = -(-n_rows // tile)
-        pad = num_tiles * tile - n_rows
         q = torch.from_numpy(np.asarray(queries[:b], np.float32)).to(dev)
-        kv, ki = kscore.score_topk_cuda(q, emb, kk=kk, tile=tile)
-        pv, pi = sref.tile_topk_ref(q, emb, kk, tile)
-        fin = torch.isfinite(pv)
-        check(torch.equal(fin, torch.isfinite(kv)), "score_topk -inf pattern")
-        # float32 sums of 768 products in two orders: within SCORE_RTOL of
-        # the value plus SCORE_ATOL (a tile shorter than kk, as a router
-        # slice's last one, lists scores near 0, where only an absolute
-        # bound means anything; the `cuda` tests' tolerance)
-        err = (kv[fin] - pv[fin]).abs()
-        check(bool((err <= SCORE_RTOL * pv[fin].abs() + SCORE_ATOL).all()),
-              f"score_topk values off by {float(err.max())} at "
-              f"{[b, n_rows, dim, kk]}")
-        mism = (ki != pi) & fin
-        if bool(mism.any()):
-            # a swapped id must score, under the plain version, within the
-            # tolerance of the plain value at that position (a tie)
-            t_idx, b_idx, _ = torch.nonzero(mism, as_tuple=True)
-            got_ids = ki[mism].long()
-            rescored = (q[b_idx].double() * emb[got_ids].double()).sum(-1)
-            ok = ((rescored - pv[mism].double()).abs()
-                  <= SCORE_RTOL * pv[mism].abs() + SCORE_ATOL)
-            check(bool(ok.all()), f"score_topk ids differ beyond score ties "
-                                  f"at {[b, n_rows, dim, kk]}")
-
-        def library(q=q, b=b, emb=emb, pad=pad, num_tiles=num_tiles,
-                    tile=tile, kk=kk):
-            s = torch.nn.functional.pad(torch.matmul(q, emb.T), (0, pad),
-                                        value=-torch.inf)
-            return torch.topk(s.view(b, num_tiles, tile), kk, dim=-1)
-
-        # the function's work, whatever computes it: each corpus and query
-        # byte read once, the lists written once; 2*B*N*n flops and one
-        # compare per score
-        nbytes = 4 * (n_rows * dim + b * dim + 2 * num_tiles * b * kk)
-        ops = 2 * b * n_rows * dim + b * n_rows
-        timed.append(measure(
-            float(err.max()),
-            lambda q=q, emb=emb, kk=kk, tile=tile: kscore.score_topk_cuda(
-                q, emb, kk=kk, tile=tile),
-            lambda q=q, emb=emb, kk=kk, tile=tile: sref.tile_topk_ref(
-                q, emb, kk, tile),
-            nbytes, ops, FP32_OPS_S, library=library,
-            id_mismatches=int(mism.sum()), shape=[b, n_rows, dim, kk]))
+        timed.append(score_topk_row(torch, q,
+                                    index.embeddings[:min(sub, full_rows)],
+                                    k_sel))
     entry("score_topk", "src/repro_torch/csrc/scoretopk.cu",
           "src/repro/kernels/scoretopk/scoretopk.py:61", timed[-1],
           *timed[:-1])
     return out
+
+
+def score_topk_row(torch, q, emb, k_sel: int) -> dict:
+    """Score + per-tile top-k of queries ``q`` over rows ``emb`` (tile 2048,
+    kk = min(k_sel, tile), as the first stage launches it): the kernel held
+    to its plain version (values within SCORE_RTOL of the value plus
+    SCORE_ATOL; ids equal up to score ties), then timed beside its bound,
+    the plain version and ``matmul`` + ``topk``.  A plain version of more
+    than 100 row blocks is timed by `call_ms` (see `timed_row`)."""
+    from repro_torch.kernels.scoretopk import ref as sref
+    from repro_torch.kernels.scoretopk import scoretopk as kscore
+
+    b = q.shape[0]
+    n_rows, dim = emb.shape
+    tile, kk = min(2048, n_rows), min(k_sel, 2048, n_rows)
+    num_tiles = -(-n_rows // tile)
+    pad = num_tiles * tile - n_rows
+    kv, ki = kscore.score_topk_cuda(q, emb, kk=kk, tile=tile)
+    pv, pi = sref.tile_topk_ref(q, emb, kk, tile)
+    fin = torch.isfinite(pv)
+    check(torch.equal(fin, torch.isfinite(kv)), "score_topk -inf pattern")
+    # float32 sums of `dim` products in two orders: within SCORE_RTOL of
+    # the value plus SCORE_ATOL (a tile shorter than kk, as a router
+    # slice's last one, lists scores near 0, where only an absolute bound
+    # means anything; the `cuda` tests' tolerance)
+    err = (kv[fin] - pv[fin]).abs()
+    check(bool((err <= SCORE_RTOL * pv[fin].abs() + SCORE_ATOL).all()),
+          f"score_topk values off by {float(err.max())} at "
+          f"{[b, n_rows, dim, kk]}")
+    mism = (ki != pi) & fin
+    if bool(mism.any()):
+        # a swapped id must score, under the plain version, within the
+        # tolerance of the plain value at that position (a tie)
+        t_idx, b_idx, _ = torch.nonzero(mism, as_tuple=True)
+        got_ids = ki[mism].long()
+        rescored = (q[b_idx].double() * emb[got_ids].double()).sum(-1)
+        ok = ((rescored - pv[mism].double()).abs()
+              <= SCORE_RTOL * pv[mism].abs() + SCORE_ATOL)
+        check(bool(ok.all()), f"score_topk ids differ beyond score ties "
+                              f"at {[b, n_rows, dim, kk]}")
+
+    def library():
+        s = torch.nn.functional.pad(torch.matmul(q, emb.T), (0, pad),
+                                    value=-torch.inf)
+        return torch.topk(s.view(b, num_tiles, tile), kk, dim=-1)
+
+    # the function's work, whatever computes it: each corpus and query
+    # byte read once, the lists written once; 2*B*N*n flops and one
+    # compare per score
+    nbytes = 4 * (n_rows * dim + b * dim + 2 * num_tiles * b * kk)
+    ops = 2 * b * n_rows * dim + b * n_rows
+    blocks = -(-n_rows // max(1, sref._BLOCK_ELEMS // (b * dim)))
+    return timed_row(
+        torch, float(err.max()),
+        lambda: kscore.score_topk_cuda(q, emb, kk=kk, tile=tile),
+        lambda: sref.tile_topk_ref(q, emb, kk, tile),
+        nbytes, ops, FP32_OPS_S, library=library, plain_call=blocks > 100,
+        id_mismatches=int(mism.sum()), shape=[b, n_rows, dim, kk])
 
 
 def device_busy(torch, prof) -> tuple:
@@ -804,7 +873,7 @@ def engine_phase(torch, np, args, index, params, plan, queries,
             rlwe_params=params, deterministic_seeds=True))
         for t in range(TENANTS):
             engine.open_session(f"tenant-{t}", n=index.dim, N=index.num_rows,
-                                k=plan.k, plan_kwargs={"kprime": 160})
+                                k=plan.k, plan_kwargs={"kprime": paper().KPRIME})
         # batched runs under torch.profiler for the device's busy and idle
         # share of the run's wall time
         res, run = serve_run(torch, np, engine, reqs, keys,
@@ -958,7 +1027,7 @@ def router_phase(torch, np, args, index, params, plan, queries,
         sessions=SessionManager(rlwe_params=params, deterministic_seeds=True))
     for t in range(TENANTS):
         rt.open_session(f"tenant-{t}", n=index.dim, N=index.num_rows,
-                        k=plan.k, plan_kwargs={"kprime": 160})
+                        k=plan.k, plan_kwargs={"kprime": paper().KPRIME})
     n = 2 * len(queries)
     res, run = serve_run(
         torch, np, rt, [queries[j % len(queries)] for j in range(n)],
@@ -1227,7 +1296,7 @@ def paillier_phase(torch, np, args, index, plan, queries, shared) -> tuple:
         for t, b in bits.items():
             eng.open_session(t, n=dim, N=index.num_rows, k=k,
                              backend="paillier", paillier_bits=b,
-                             plan_kwargs={"kprime": 160})
+                             plan_kwargs={"kprime": paper().KPRIME})
         return eng
 
     tenants = {f"tenant-{t}": PAILLIER_BITS for t in range(TENANTS)}
@@ -1428,7 +1497,7 @@ def ivf_phase(torch, np, args, params) -> tuple:
     from repro_torch.serve import (EngineConfig, ReplicaRouter, RouterConfig,
                                    ServeEngine, SessionManager, batching)
 
-    dim, n_docs = 768, IVF_DOCS
+    dim, n_docs = paper().DIM, IVF_DOCS
     out, paths = {}, []
     t0 = time.perf_counter()
     corpus = synth.clustered_corpus(np.random.default_rng(args.seed), n_docs,
@@ -1465,7 +1534,7 @@ def ivf_phase(torch, np, args, params) -> tuple:
           and np.array_equal(cm.starts[1:], cm.stops[:-1])
           and int(cm.stops[-1]) == n_docs,
           f"ivf: cluster map {cm.starts.tolist()} {cm.stops.tolist()}")
-    plan = planner.plan(n=dim, N=n_docs, k=5, kprime=160)
+    plan = planner.plan(n=dim, N=n_docs, k=paper().K, kprime=paper().KPRIME)
     nprobe = plan_nprobe(cm, plan.kprime)
     shard_bytes = IVF_SHARD_DOCS * params.num_chunks(dim) * \
         params.num_primes * params.n_poly * 4
@@ -1511,7 +1580,7 @@ def ivf_phase(torch, np, args, params) -> tuple:
             sessions=sessions())
         for t in range(TENANTS):
             eng.open_session(f"tenant-{t}", n=dim, N=n_docs, k=plan.k,
-                             plan_kwargs={"kprime": 160})
+                             plan_kwargs={"kprime": paper().KPRIME})
         return eng
 
     n_req = 2 * len(queries)
@@ -1654,7 +1723,7 @@ def ivf_phase(torch, np, args, params) -> tuple:
     for name, srv in (("ivf_grown_engine", pinned), ("ivf_grown_router", rt)):
         for t in range(TENANTS):
             srv.open_session(f"tenant-{t}@e1", n=dim, N=grown, k=plan.k,
-                             plan_kwargs={"kprime": 160})
+                             plan_kwargs={"kprime": paper().KPRIME})
         res, run = serve_run(torch, np, srv, list(q_tail),
                              [args.seed * 1000 + 500 + j
                               for j in range(REQUESTS)],
@@ -1683,6 +1752,266 @@ def ivf_phase(torch, np, args, params) -> tuple:
     return out, paths
 
 
+def served_ids_ok(scores, ids, k: int, tie: float) -> bool:
+    """``ids`` are a plaintext top-``k`` of ``scores`` (one query's float
+    scores over the corpus) up to ``tie``: every row scoring above the
+    k-th best by more than ``tie`` is served, and no served row scores
+    below it by more than ``tie``."""
+    kth = float(scores.sort(descending=True).values[k - 1])
+    served = set(int(i) for i in ids)
+    clear = set((scores > kth + tie).nonzero()[:, 0].tolist())
+    return (len(served) == k and clear <= served
+            and all(float(scores[i]) >= kth - tie for i in served))
+
+
+def text_phase(torch, np, args, params) -> tuple:
+    """The service's text front end at full width: 2^17 passages built as
+    `repro_torch.examples.private_rag_serve` builds them, tokenized
+    (HashTokenizer(32768), 32 tokens), embedded on the card by the
+    768-wide, 4-layer encoder (seeded weights), indexed with its dense
+    candidate cache; 16 text queries of 4 tenants through a ServeEngine
+    (max_batch 8), batched then sequential.  Returns (phase dict, [(path,
+    launches, shapes)], timed score-top-k rows)."""
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.examples.private_rag_serve import TOPICS, make_passages
+    from repro_torch.kernels import ext
+    from repro_torch.models.embedder import Embedder, encoder_config
+    from repro_torch.retrieval.index import FlatIndex
+    from repro_torch.retrieval.topk import distributed_topk
+    from repro_torch.serve import (EngineConfig, ServeEngine, SessionManager,
+                                   batching)
+
+    out, paths = {}, []
+    dev = torch.device("cuda")
+    cfg = encoder_config(dim=paper().DIM)
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    passages = make_passages(rng, TEXT_DOCS)
+    out["passages_s"] = time.perf_counter() - t0
+    tok = HashTokenizer(cfg.vocab)
+    t0 = time.perf_counter()
+    ids = tok.encode_batch(passages, TEXT_SEQ)
+    out["tokenise_s"] = time.perf_counter() - t0
+    model = Embedder(cfg, generator=torch.Generator().manual_seed(args.seed),
+                     device=dev)
+    model.embed(ids[:EMBED_BATCH])                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embs = torch.cat([model.embed(ids[i:i + EMBED_BATCH])
+                      for i in range(0, TEXT_DOCS, EMBED_BATCH)])
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    # the encoder's float32 work: per token and layer the q/k/v/o and
+    # SwiGLU products (2 flops a multiply-add) and the attention's scores
+    # and weighted values over the sequence
+    spec = cfg.attn_spec
+    hd = spec.padded_heads * spec.d_head
+    per_token = cfg.n_layers * 2 * (
+        cfg.d_model * hd + 2 * cfg.d_model * spec.padded_kv_heads * spec.d_head
+        + hd * cfg.d_model + 3 * cfg.d_model * cfg.d_ff + 2 * TEXT_SEQ * hd)
+    flops = per_token * TEXT_DOCS * TEXT_SEQ
+    out.update(embed_s=embed_s, embed_batch=EMBED_BATCH,
+               embed_tflop=flops / 1e12,
+               embed_bound_s=flops / FP32_OPS_S,
+               embed_tflop_s=flops / embed_s / 1e12)
+    t0 = time.perf_counter()
+    index = FlatIndex.build(embs.cpu().numpy(),
+                            documents=[p.encode() for p in passages])
+    torch.cuda.synchronize()
+    out["index_s"] = time.perf_counter() - t0
+    del embs
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    t0 = time.perf_counter()
+    cache = index.candidate_cache(params)
+    torch.cuda.synchronize()
+    out["cache_build_s"] = time.perf_counter() - t0
+    out["cache_gb"] = cache.nbytes / 1e9
+    paths.append(("text_pack", ext.launch_counts(),
+                  shape_counts(ext.launch_shapes())))
+
+    # 16 text queries (topic words and passage words), each embedded alone
+    # as the example embeds its queries
+    qrng = np.random.default_rng(args.seed + 1)
+    qtexts = [" ".join(TOPICS[j % len(TOPICS)].split()[j % 3:j % 3 + 2]
+                       + [f"w{qrng.integers(0, 500)}" for _ in range(2)])
+              for j in range(TEXT_QUERIES)]
+    q_embs = np.concatenate([model.embed(tok.encode_batch([t], TEXT_SEQ))
+                             .cpu().numpy() for t in qtexts])
+    q = torch.from_numpy(q_embs).to(index.device)
+    scores = torch.matmul(q, index.embeddings.T)          # TF32 is off
+    top = torch.sort(scores, dim=1, descending=True, stable=True)
+    k = paper().K
+    want = top.indices[:, :k].cpu()
+    gaps = (top.values[:, k - 1] - top.values[:, k]).cpu().tolist()
+
+    keys = [args.seed * 1000 + j for j in range(TEXT_QUERIES)]
+    runs = {"batched": EngineConfig(max_batch=8, trace=True),
+            "sequential": EngineConfig(max_batch=1, sequential=True,
+                                       trace=True)}
+    results = {}
+    for name, ecfg in runs.items():
+        eng = ServeEngine(index, config=ecfg, sessions=SessionManager(
+            rlwe_params=params, deterministic_seeds=True))
+        for t in range(TENANTS):
+            eng.open_session(f"tenant-{t}", n=cfg.d_model, N=TEXT_DOCS, k=k,
+                             radius=0.05, backend="rlwe")
+        plan = eng.sessions.get("tenant-0").plan
+        res, run = serve_run(torch, np, eng, list(q_embs), keys,
+                             lambda j: f"tenant-{j % TENANTS}",
+                             f"text engine {name}",
+                             profiled=not ecfg.sequential)
+        eng.close()
+        paths.append((f"text_engine_{name}", run["launches"], run["shapes"]))
+        agg = eng.metrics.summary()["aggregate"]
+        out[name] = dict(run, p50_latency_s=agg["p50_latency_s"],
+                         p99_latency_s=agg["p99_latency_s"],
+                         mean_latency_s=agg["mean_latency_s"],
+                         stages=eng.trace_summary()["stages"])
+        out[name].pop("shapes")
+        results[name] = res
+    for a, b in zip(results["batched"], results["sequential"]):
+        check(same_result(a, b), f"text: request {b.request_id} batched "
+                                 f"differs from sequential")
+    recalls = []
+    for r in results["batched"]:
+        j = r.request_id
+        check(r.docs == [passages[int(i)].encode() for i in r.ids],
+              f"text: request {j}: documents do not match ids")
+        check(served_ids_ok(scores[j], r.ids, k, TEXT_TIE),
+              f"text: request {j} served {r.ids.tolist()}, plaintext top-"
+              f"{k} {want[j].tolist()} (k-th/(k+1)-th gap {gaps[j]})")
+        recalls.append(len(set(r.ids.tolist()) & set(want[j].tolist())) / k)
+    # Theorem 1's planned k' assumes a uniform corpus: did the true top-k
+    # lie inside each request's first-stage candidates?  (printed)
+    pert = batching.perturb_batch(
+        [torch.Generator(device="cuda").manual_seed(key) for key in keys],
+        q_embs, [plan.eps] * TEXT_QUERIES)
+    cand = distributed_topk(index, pert, plan.kprime).indices.cpu()
+    inside = [set(want[j].tolist()) <= set(cand[j].tolist())
+              for j in range(TEXT_QUERIES)]
+    rows = [score_topk_row(torch, q[:b], index.embeddings, plan.kprime)
+            for b in (1, 8)]
+    out.update(docs=TEXT_DOCS, seq=TEXT_SEQ, queries=qtexts,
+               kprime=plan.kprime, eps=plan.eps, path=plan.path,
+               recall_at_k=recalls, kth_gap=gaps, tie=TEXT_TIE,
+               top_k_inside_kprime=inside,
+               total_bytes=[r.transcript.total_bytes
+                            for r in results["batched"]])
+    del index, cache, model
+    return out, paths, rows
+
+
+def attack_phase(torch, np, args) -> tuple:
+    """The Fig. 4 inversion attacks: (a) the benchmark's full setting
+    (3000 token documents x 768, vocab 1024, 15 paraphrases, 50 queries,
+    one generator for the corpus and, in order, the exact-recovery, NN F1
+    and linear-decoder curves) on the card and through the plain CPU path
+    from a copy of the generator; (b) the same attacks over 100,000 aux
+    documents x 768 at vocab 4096 with 256 queries, on the card.  Returns
+    (phase dict, [(path, launches, shapes)], timed score-top-k rows)."""
+    import copy
+
+    from repro_torch.core import attacks
+    from repro_torch.data import synth
+    from repro_torch.kernels import ext
+
+    dim = paper().DIM
+    out, paths = {}, []
+
+    def curves(corpus, n_q, device, gen) -> tuple:
+        walls = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t
+            return r
+
+        nn = timed("nn_build_s", lambda: attacks.NearestNeighborAttack(
+            aux=corpus, device=device))
+        exact = timed("exact_curve_s", lambda: attacks.exact_recovery_curve(
+            nn, corpus, range(n_q), RADII, gen))
+        f1 = timed("f1_curve_s", lambda: attacks.attack_curve(
+            nn, corpus, range(n_q), RADII, gen))
+        lin = timed("linear_build_s", lambda: attacks.LinearDecoderAttack(
+            aux=corpus, top_m=20, device=device))
+        lin_c = timed("linear_curve_s", lambda: attacks.attack_curve(
+            lin, corpus, range(n_q), RADII, gen))
+        return dict(exact=exact.tolist(), nn_f1=f1.tolist(),
+                    linear_f1=lin_c.tolist(), walls=walls), nn
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        paths.append((name, path_launches(name, ext.launch_counts(),
+                                          ATTACK_KERNELS),
+                      shape_counts(ext.launch_shapes())))
+        return r
+
+    # -- (a) Fig. 4's full setting, card and CPU --------------------------
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    corpus = synth.token_corpus(rng, FIG4_DOCS, dim, vocab=1024, doc_len=20,
+                                paraphrases=15)
+    corpus_s = time.perf_counter() - t0
+    rng_cpu = copy.deepcopy(rng)
+    card, nn = counted("attack_fig4", lambda: curves(
+        corpus, FIG4_QUERIES, torch.device("cuda"), rng))
+    cpu, nn_cpu = curves(corpus, FIG4_QUERIES, "cpu", rng_cpu)
+    for name in ("exact", "nn_f1", "linear_f1"):
+        c = card[name]
+        check(all(c[i + 1] <= c[i] + 0.05 for i in range(len(c) - 1)),
+              f"attack: {name} curve {c} rises with the radius")
+    check(card["exact"][0] == 1.0,
+          f"attack: exact recovery {card['exact'][0]} at r = 0")
+    lin_err = max(abs(a - b) for a, b in zip(card["linear_f1"],
+                                             cpu["linear_f1"]))
+    check(lin_err <= 0.02, f"attack: linear-decoder curve on the card off "
+                           f"the CPU's by {lin_err}")
+    # the NN decode, card (kernel) against CPU (plain version): equal ids
+    # up to rows scoring within 1e-5 (float64) of each other
+    obs = attacks.perturbed_queries(corpus, range(FIG4_QUERIES), RADII,
+                                    np.random.default_rng(args.seed + 5))
+    got, want = nn.decode_indices(obs), nn_cpu.decode_indices(obs)
+    e64 = corpus.embeddings.astype(np.float64)
+    u = synth.unit(obs)
+    sc_got = (e64[got] * u).sum(-1)
+    sc_want = (e64[want] * u).sum(-1)
+    check(bool((np.abs(sc_got - sc_want) <= 1e-5).all()),
+          "attack: NN decode ids on the card differ beyond score ties")
+    out["fig4"] = dict(
+        docs=FIG4_DOCS, queries=FIG4_QUERIES, radii=list(RADII),
+        corpus_s=corpus_s, card=card, cpu=cpu,
+        decode_id_swaps=int((got != want).sum()),
+        nn_curve_max_diff=max(abs(a - b) for name in ("exact", "nn_f1")
+                              for a, b in zip(card[name], cpu[name])),
+        linear_curve_max_diff=lin_err)
+    q_fig4 = torch.from_numpy(u.astype(np.float32)).cuda()
+    timed_rows = [score_topk_row(torch, q_fig4, nn.embeddings, 1)]
+
+    # -- (b) at scale, on the card ----------------------------------------
+    rng = np.random.default_rng(args.seed + 1)
+    t0 = time.perf_counter()
+    aux = synth.token_corpus(rng, AUX_DOCS, dim, vocab=AUX_VOCAB,
+                             doc_len=20, paraphrases=15)
+    corpus_s = time.perf_counter() - t0
+    scale, nn = counted("attack_at_scale", lambda: curves(
+        aux, AUX_QUERIES, torch.device("cuda"), rng))
+    obs = attacks.perturbed_queries(aux, range(AUX_QUERIES), RADII,
+                                    np.random.default_rng(args.seed + 6))
+    q_aux = torch.from_numpy(synth.unit(obs).astype(np.float32)).cuda()
+    timed_rows.append(score_topk_row(torch, q_aux, nn.embeddings, 1))
+    out["at_scale"] = dict(docs=AUX_DOCS, vocab=AUX_VOCAB,
+                           queries=AUX_QUERIES, corpus_s=corpus_s,
+                           ridge_y_gb=AUX_DOCS * AUX_VOCAB * 4 / 1e9, **scale)
+    return out, paths, timed_rows
+
+
 def flat_phases(torch, np, args, emits) -> tuple:
     """Phases 2-7 on the paper config's uniform corpus, in one scope so the
     index, its dense cache and the cache's host pool are freed when it
@@ -1694,9 +2023,9 @@ def flat_phases(torch, np, args, emits) -> tuple:
     from repro_torch.kernels import ext
     from repro_torch.retrieval.index import FlatIndex
 
-    # -- data, index, cache (paper config: repro/configs/remoterag.py) ------
-    dim, k, kprime_knob = 768, 5, 160
-    params = rlwe.RlweParams()
+    # -- data, index, cache (paper config: configs/remoterag.py) -----------
+    cfg = paper()
+    dim, k, kprime_knob, params = cfg.DIM, cfg.K, cfg.KPRIME, cfg.RLWE
     t0 = time.perf_counter()
     corpus = synth.uniform_corpus(np.random.default_rng(args.seed),
                                   args.n_docs, dim)
@@ -1782,9 +2111,10 @@ def flat_phases(torch, np, args, emits) -> tuple:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n-docs", type=int, default=10**6,
-                    help="documents of the paper-config phases (the IVF "
-                         "phase always holds 10^6)")
+    ap.add_argument("--n-docs", type=int, default=None,
+                    help="documents of the paper-config phases (default: "
+                         "the config's N_DOCS, 10^6; the IVF phase always "
+                         "holds 10^6)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -1795,9 +2125,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
-    from repro_torch.crypto import rlwe
     from repro_torch.kernels import ext
 
+    if args.n_docs is None:
+        args.n_docs = paper().N_DOCS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1823,9 +2154,25 @@ def main(argv=None) -> int:
           f"flat phases left {released['device_gb']} GB on the device")
     with Peaks(torch) as pk_ivf:
         t0 = time.perf_counter()
-        ivf, ivf_paths = ivf_phase(torch, np, args, rlwe.RlweParams())
+        ivf, ivf_paths = ivf_phase(torch, np, args, paper().RLWE)
         ivf_s = time.perf_counter() - t0
     paths += ivf_paths
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Peaks(torch) as pk_text:
+        t0 = time.perf_counter()
+        text, text_paths, text_rows = text_phase(torch, np, args,
+                                                 paper().RLWE)
+        text_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Peaks(torch) as pk_attack:
+        t0 = time.perf_counter()
+        attack, attack_paths, attack_rows = attack_phase(torch, np, args)
+        attack_s = time.perf_counter() - t0
+    paths += text_paths + attack_paths
+    score_row = next(k for k in kernels if k["name"] == "score_topk")
+    score_row["at_shapes"] += text_rows + attack_rows
     launch_tally(kernels, paths)
     emit({"kernels": kernels})
     for line in emits:
@@ -1834,6 +2181,10 @@ def main(argv=None) -> int:
           "clusters": IVF_CLUSTERS, "shard_docs": IVF_SHARD_DOCS,
           "ingest_docs": INGEST_DOCS, "released_before": released,
           "phase_s": ivf_s, "memory": pk_ivf.result, **ivf})
+    emit({"phase": "text", "phase_s": text_s, "memory": pk_text.result,
+          **text})
+    emit({"phase": "attack", "phase_s": attack_s,
+          "memory": pk_attack.result, **attack})
     emit({"phase": "summary", "build_s": build_s,
           "host_max_rss_gb": resource.getrusage(
               resource.RUSAGE_SELF).ru_maxrss / 1e6,

@@ -16,6 +16,8 @@ import torch
 from repro_torch.crypto import paillier as pai
 from repro_torch.crypto import rlwe
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.embedder import Embedder
+from repro_torch.models.transformer import Transformer, TransformerConfig
 from repro_torch.retrieval.index import ClusterMap, FlatIndex
 
 
@@ -112,5 +114,55 @@ def paillier_secret_key(n: int, g: int, lam: int,
                                  lam=int(lam), mu=int(mu))
 
 
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out.update(_flatten(leaf, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = np.asarray(leaf)
+    return out
+
+
+def _state_dict(tree: dict, cfg: TransformerConfig) -> dict:
+    """The reference's parameter tree (``embed``, ``layers`` with a leading
+    (n_layers,) axis on every leaf, ``final_norm``, ``unembed``) as a
+    `Transformer` state dict: ``layers.attn.wq[i]`` -> ``layers.{i}.attn.wq``."""
+    state = {}
+    for name, leaf in _flatten(tree).items():
+        if name.startswith("layers."):
+            if leaf.shape[0] != cfg.n_layers:
+                raise ValueError(f"{name}: {leaf.shape[0]} stacked layers, "
+                                 f"config has {cfg.n_layers}")
+            rest = name[len("layers."):]
+            for i in range(cfg.n_layers):
+                state[f"layers.{i}.{rest}"] = torch.from_numpy(
+                    np.array(leaf[i]))
+        else:
+            state[name] = torch.from_numpy(np.array(leaf))
+    return state
+
+
+def transformer_params(tree: dict, cfg: TransformerConfig, *,
+                       device: DeviceLike = None) -> Transformer:
+    """A `Transformer` holding the reference's parameters: ``tree`` is the
+    reference's ``init_params`` tree as nested dicts of numpy arrays.
+    Every parameter must be present, at the config's shapes."""
+    model = Transformer(cfg, device=device)
+    model.load_state_dict(_state_dict(tree, cfg), strict=True)
+    return model
+
+
+def embedder(tree: dict, cfg: TransformerConfig, *,
+             device: DeviceLike = None) -> Embedder:
+    """An `Embedder` holding the reference embedder's parameters (the
+    reference's ``embedder.init_params`` tree, as `transformer_params`
+    takes it)."""
+    emb = Embedder(cfg, device=device)
+    emb.model.load_state_dict(_state_dict(tree, cfg), strict=True)
+    return emb
+
+
 __all__ = ["cluster_map", "flat_index", "candidate_cache", "sharded_candidate_cache",
-           "secret_key", "paillier_public_key", "paillier_secret_key"]
+           "secret_key", "paillier_public_key", "paillier_secret_key",
+           "transformer_params", "embedder"]

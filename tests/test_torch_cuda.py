@@ -724,3 +724,53 @@ def test_paillier_scores_on_card_equal_object_path(cuda):
     for k, ct, d, c, e in zip(keys, got, dec, cands, q):
         np.testing.assert_array_equal(d, pai.decrypt_scores(k, ct))
         np.testing.assert_allclose(d, c @ e, atol=2e-3)
+
+
+@pytest.mark.parametrize("n_docs,vocab,n_q", [(3000, 1024, 50),
+                                              (100_000, 4096, 256)])
+def test_nn_attack_top1_through_the_kernel(cuda, n_docs, vocab, n_q):
+    """The NN attack's batched decode (score-top-k, kk = 1) on the card:
+    launched through the kernel, and equal to the plain version up to
+    score ties (rows within 1e-5 of each other may swap)."""
+    from repro_torch.core import attacks
+    from repro_torch.data import synth
+
+    rng = np.random.default_rng(n_docs)
+    corpus = synth.token_corpus(rng, n_docs, 768, vocab=vocab, doc_len=20,
+                                paraphrases=15)
+    obs = attacks.perturbed_queries(corpus, range(n_q), [0.0, 0.1, 1.0, 4.0],
+                                    rng)
+    atk = attacks.NearestNeighborAttack(aux=corpus, device=cuda)
+    ext.reset_launches()
+    got = atk.decode_indices(obs)
+    assert ext.launch_counts() == {"score_topk": 1}
+    q = torch.from_numpy(synth.unit(obs).astype(np.float32))
+    _, want = sref.topk_ref(q.to(cuda), atk.embeddings, 1)
+    _assert_ids_equal_up_to_ties(torch.from_numpy(got)[:, None], want.cpu(),
+                                 q, torch.from_numpy(corpus.embeddings))
+    assert (got[:n_q] == np.arange(n_q)).mean() > 0.9   # r = 0 finds itself
+
+
+def test_embedder_on_card_equals_cpu(cuda):
+    """The 768-wide, 4-layer encoder on the card against the same weights
+    on the CPU (float32, TF32 off), within 1e-4."""
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models.embedder import Embedder, encoder_config
+
+    cfg = encoder_config(dim=768)
+    cpu = Embedder(cfg, generator=torch.Generator().manual_seed(3),
+                   device="cpu")
+    card = Embedder(cfg, generator=torch.Generator().manual_seed(3),
+                    device=cuda)
+    texts = [f"topic {i} words w{i * 7 % 500} w{i * 13 % 500}"
+             for i in range(64)]
+    tokens = HashTokenizer(cfg.vocab).encode_batch(texts, 32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = card.embed(tokens).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = cpu.embed(tokens)
+    assert got.shape == (64, 768)
+    assert float((got - want).abs().max()) <= 1e-4

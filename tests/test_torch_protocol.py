@@ -207,3 +207,23 @@ def test_entry_points_default_to_cuda(monkeypatch):
         batching.perturb_batch([torch.Generator()], emb[:1], [1.0])
     with pytest.raises(RuntimeError):
         tr.keygen(TP, np.random.default_rng(0))
+    # the text front end, the attacks and the serving examples
+    from repro_torch.core import attacks
+    from repro_torch.data.synth import token_corpus
+    from repro_torch.examples import private_rag_serve, quickstart
+    from repro_torch.models import embedder, transformer
+
+    cfg = embedder.encoder_config(dim=128, vocab=512, n_layers=1)
+    with pytest.raises(RuntimeError):
+        embedder.Embedder(cfg)
+    with pytest.raises(RuntimeError):
+        transformer.Transformer(cfg)
+    aux = token_corpus(np.random.default_rng(0), 20, 8, vocab=64)
+    with pytest.raises(RuntimeError):
+        attacks.NearestNeighborAttack(aux=aux)
+    with pytest.raises(RuntimeError):
+        attacks.LinearDecoderAttack(aux=aux)
+    with pytest.raises(RuntimeError):
+        quickstart.main([])
+    with pytest.raises(RuntimeError):
+        private_rag_serve.main([])
