@@ -95,12 +95,29 @@ counterpart of ``repro/configs/remoterag.py``: 10^6 documents of dimension
      at r = 0 and every curve non-increasing within 0.05; then the same
      attacks over 100,000 aux documents x 768 at vocab 4096 with 256
      queries on the card, walls printed; score-top-k is timed at the two
-     decode shapes, (400, 3000) and (2048, 100,000) with kk = 1.
+     decode shapes, (400, 3000) and (2048, 100,000) with kk = 1;
+ 12. the MoE LM path (the ``lm`` phase), Qwen3-30B-A3B
+     (``repro_torch/configs/qwen3_moe_30b_a3b.py``) at every published
+     width with tp = 1 (d_model 2048, 32 q / 4 kv heads x 128, qk-norm,
+     128 experts, top-8, expert d_ff 768, vocabulary 151,936 padded to
+     152,064): (a) 2 layers in float32, drawn from a seeded CPU generator
+     and loaded on the card; 2 prompts x 64 tokens through ``prefill`` and
+     4 ``decode_step``s on both, fed the CPU's greedy tokens; routing ids
+     equal wherever a token's 8th/9th router-logit gap exceeds 1e-4, and
+     logits within 1e-3 on the sequences with no token below that gap
+     (the number excluded printed; all excluded fails); (b) 8 of the 48
+     layers in bfloat16 (5.61 B parameters, drawn on the card), 8 prompts
+     x 512 tokens through ``prefill`` twice (bit-identical logits), the
+     share of (token, expert) pairs dropped to capacity, then 64 greedy
+     decode steps: prefill wall and ms a decode step (median, p90, p99),
+     tokens/s and the decode loop's device idle share, each time beside
+     its bound.
 
 Each path (one-at-a-time, batch, each engine and router run, the text
-pack and engines, each attack setting on the card) runs with
-the launch counts set to 0 just before it and read just after, and every
-kernel of the path must have launched; the kernels line gives each
+pack and engines, each attack setting on the card, the LM's parity run,
+prefill and decode) runs with the launch counts set to 0 just before it
+and read just after, and every kernel of the path must have launched
+(the LM path has none: its counts must stay 0); the kernels line gives each
 kernel's launches over the paths, by path and by shape, and launches x
 (time - bound) per timed shape.  Every phase prints one JSON line with its
 wall time and its device and host memory peaks; the last line is the
@@ -167,6 +184,20 @@ RADII = (0.0, 0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 4.0)
 FIG4_DOCS, FIG4_QUERIES = 3000, 50
 AUX_DOCS, AUX_VOCAB, AUX_QUERIES = 100_000, 4096, 256
 ATTACK_KERNELS = ("score_topk",)
+# lm phase: the MoE LM at every published width with tp = 1, as the
+# reference's serving cells run it (repro_torch/configs/qwen3_moe_30b_a3b.py)
+LM_ARCH = "qwen3-moe-30b-a3b"
+# (a) parity anchor: 2 layers, float32 (TF32 off), card against the CPU
+LM_PARITY_LAYERS, LM_PARITY_PROMPTS, LM_PARITY_LEN, LM_PARITY_STEPS = \
+    2, 2, 64, 4
+LM_GAP = 1e-4       # k-th/(k+1)-th router-logit gap below which ids may swap
+LM_ATOL = 1e-3      # logits, card against CPU, float32
+# (b) the serving run: 8 of the 48 layers in bfloat16, every expert and
+# the whole vocabulary; 8 prompts x 512 tokens, 64 greedy decode steps
+LM_LAYERS, LM_PROMPTS, LM_PROMPT_LEN, LM_MAX_LEN, LM_STEPS = \
+    8, 8, 512, 1024, 64
+BF16_OPS_S = 989e12   # H100 SXM dense bf16 tensor-core peak (data sheet)
+LM_KERNELS = ()       # the LM path launches none of the five kernels
 
 
 def paper():
@@ -2012,6 +2043,291 @@ def attack_phase(torch, np, args) -> tuple:
     return out, paths, timed_rows
 
 
+def lm_path(name: str, counts: dict) -> dict:
+    """The LM path runs none of the five kernels (``LM_KERNELS`` is
+    empty): fail if any launched in ``counts`` (one run, counts set to 0
+    just before it)."""
+    path_launches(name, counts, LM_KERNELS)
+    check(not any(counts.values()),
+          f"{name}: kernels launched on the LM path: {counts}")
+    return counts
+
+
+def routing_hooks(model, record: list) -> list:
+    """Forward hooks on every layer's MoE: each call appends (top-k expert
+    ids (B, S, K), k-th/(k+1)-th router-logit gap (B, S)), on the host.
+    Returns the hook handles."""
+    from repro_torch.models import moe as moe_lib
+
+    def hook(mod, inputs, _out):
+        _, values, ids = moe_lib.route(mod, inputs[0], mod.spec)
+        k = mod.spec.top_k
+        record.append((ids[..., :k].cpu(),
+                       (values[..., k - 1] - values[..., k]).cpu()))
+
+    return [blk.moe.register_forward_hook(hook) for blk in model.layers]
+
+
+def greedy(logits, vocab: int):
+    """Argmax over the real vocabulary (padded columns cut off)."""
+    return logits[..., :vocab].argmax(dim=-1)
+
+
+def lm_parity(torch, np, args, cfg) -> tuple:
+    """(a) ``cfg`` at LM_PARITY_LAYERS layers in float32: one copy drawn
+    from a seeded CPU generator, its state dict loaded on the card;
+    LM_PARITY_PROMPTS prompts through ``prefill``, then LM_PARITY_STEPS
+    ``decode_step``s on both, each fed the CPU's greedy tokens.  Routing
+    ids must agree wherever a token's k-th/(k+1)-th router-logit gap
+    exceeds LM_GAP on both devices; logits within LM_ATOL on sequences
+    with no token below that gap.  Returns (dict, [(path, launches,
+    shapes)])."""
+    import dataclasses
+
+    from repro_torch.kernels import ext
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(cfg, n_layers=LM_PARITY_LAYERS,
+                              dtype="float32")
+    t0 = time.perf_counter()
+    cpu = Transformer(cfg, generator=torch.Generator().manual_seed(args.seed),
+                      device="cpu")
+    init_s = time.perf_counter() - t0
+    card = Transformer(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    tokens = np.random.default_rng(args.seed + 7).integers(
+        0, cfg.vocab, size=(LM_PARITY_PROMPTS, LM_PARITY_LEN))
+    max_len = LM_PARITY_LEN + LM_PARITY_STEPS
+
+    def run(model, feed):
+        """[logits (B, S, V) of prefill, then (B, 1, V) a step], the
+        routing record, and the greedy tokens (taken from the logits when
+        ``feed`` is None, else ``feed``)."""
+        record: list = []
+        hooks = routing_hooks(model, record)
+        try:
+            logits, cache = model.prefill(tokens, max_len=max_len)
+            outs, fed = [logits.cpu()], []
+            for step in range(LM_PARITY_STEPS):
+                nxt = (greedy(outs[-1][:, -1], cfg.vocab) if feed is None
+                       else feed[step])
+                fed.append(nxt)
+                lg, cache = model.decode_step(nxt[:, None], cache)
+                outs.append(lg[:, None].cpu())
+        finally:
+            for h in hooks:
+                h.remove()
+        return outs, record, fed
+
+    t0 = time.perf_counter()
+    want, rec_cpu, fed = run(cpu, None)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    t0 = time.perf_counter()
+    got, rec_card, _ = run(card, fed)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    paths = [("lm_parity", lm_path("lm_parity", ext.launch_counts()),
+              shape_counts(ext.launch_shapes()))]
+    check(len(rec_cpu) == len(rec_card) == cfg.n_layers * (
+        1 + LM_PARITY_STEPS), "lm parity: MoE calls differ")
+    excluded = torch.zeros(LM_PARITY_PROMPTS, dtype=torch.bool)
+    id_mismatch = near = 0
+    for (ids_a, gap_a), (ids_b, gap_b) in zip(rec_cpu, rec_card):
+        clear = torch.minimum(gap_a, gap_b) > LM_GAP           # (B, S)
+        near += int((~clear).sum())
+        excluded |= (~clear).any(dim=1)
+        id_mismatch += int(((ids_a != ids_b).any(-1) & clear).sum())
+    check(id_mismatch == 0, f"lm parity: {id_mismatch} tokens routed to "
+                            f"other experts on the card, gaps > {LM_GAP}")
+    kept = ~excluded
+    check(bool(kept.any()), f"lm parity: every sequence holds a router gap "
+                            f"below {LM_GAP}; nothing left to compare")
+    errs = [float((g - w).abs().amax(dim=(1, 2))[kept].max())
+            for g, w in zip(got, want)]
+    err_all = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(max(errs) <= LM_ATOL, f"lm parity: logits off the CPU's by "
+                                f"{max(errs)} > {LM_ATOL}")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "lm parity: non-finite logits on the card")
+    out = dict(layers=cfg.n_layers, dtype=cfg.dtype,
+               prompts=LM_PARITY_PROMPTS, prompt_len=LM_PARITY_LEN,
+               decode_steps=LM_PARITY_STEPS, init_cpu_s=init_s,
+               cpu_s=cpu_s, card_s=card_s, gap=LM_GAP,
+               near_tie_tokens=near,
+               sequences_excluded=int(excluded.sum()),
+               max_abs_err=max(errs), max_abs_err_all_sequences=err_all,
+               atol=LM_ATOL)
+    del cpu, card
+    return out, paths
+
+
+def lm_flops(cfg, b: int, s: int) -> tuple:
+    """(bf16 FLOP, float32 FLOP) of a prefill of (b, s) tokens as the
+    reference computes it: the q/k/v/o projections, the router, the
+    experts over their capacity-padded slots (b x E x C, three products
+    each), the unembedding (bf16); the full s x s attention scores and
+    weighted values (float32 in the port's online softmax)."""
+    spec, moe = cfg.attn_spec, cfg.moe_spec
+    hq = spec.padded_heads * spec.d_head
+    hkv = spec.padded_kv_heads * spec.d_head
+    t = b * s
+    slots = b * moe.padded_experts * moe.capacity(s)
+    per_layer = (2 * t * cfg.d_model * (2 * hq + 2 * hkv)
+                 + 2 * t * cfg.d_model * moe.padded_experts
+                 + slots * 3 * 2 * cfg.d_model * moe.d_ff)
+    bf16 = cfg.n_layers * per_layer + 2 * t * cfg.d_model * cfg.padded_vocab
+    f32 = cfg.n_layers * 2 * 2 * b * s * s * hq
+    return bf16, f32
+
+
+def lm_serve(torch, np, args, cfg) -> tuple:
+    """(b) ``cfg`` at LM_LAYERS layers in bfloat16 drawn on the card from a
+    seeded CUDA generator; LM_PROMPTS x LM_PROMPT_LEN seeded prompts
+    through ``prefill`` twice (bit-identical logits) and once more with
+    routing hooks (the share of (token, expert) pairs dropped to
+    capacity); then LM_STEPS greedy ``decode_step``s, once timed step by
+    step and once profiled, from copies of the prefill's cache.  Returns
+    (dict, [(path, launches, shapes)])."""
+    import dataclasses
+
+    from repro_torch.kernels import ext
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(cfg, n_layers=LM_LAYERS)
+    b, s = LM_PROMPTS, LM_PROMPT_LEN
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in model.parameters())
+    tokens = torch.from_numpy(np.random.default_rng(args.seed + 8).integers(
+        0, cfg.vocab, size=(b, s))).to(model.device)
+    paths = []
+
+    def prefill():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = model.prefill(tokens, max_len=LM_MAX_LEN)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    ext.reset_launches()
+    (logits, cache), cold_ms = prefill()
+    (again, _), prefill_ms = prefill()
+    paths.append(("lm_prefill", lm_path("lm_prefill", ext.launch_counts()),
+                  shape_counts(ext.launch_shapes())))
+    check(bool(torch.isfinite(logits).all()), "lm: non-finite prefill logits")
+    check(torch.equal(logits, again), "lm: two identical prefills differ")
+    last = logits[:, -1].clone()
+    del logits, again
+    record: list = []
+    hooks = routing_hooks(model, record)
+    try:
+        model.prefill(tokens, max_len=LM_MAX_LEN)
+    finally:
+        for h in hooks:
+            h.remove()
+    moe = cfg.moe_spec
+    cap = moe.capacity(s)
+    # per layer (one MoE call each): pairs past their expert's capacity in
+    # their row, and the experts a row routes to at all
+    by_layer, used = [], []
+    for ids, _ in record:
+        counts = torch.nn.functional.one_hot(
+            ids.reshape(b, -1), moe.padded_experts).sum(dim=1)
+        by_layer.append(int(torch.clamp(counts - cap, min=0).sum()))
+        used.append(float((counts > 0).sum(dim=1).float().mean()))
+    dropped = sum(by_layer)
+    pairs = cfg.n_layers * b * s * moe.top_k
+
+    def decode():
+        """(greedy ids (B, LM_STEPS), ms a step): each step waits for its
+        token, as a server streaming it would."""
+        c = {"k": cache["k"].clone(), "v": cache["v"].clone(),
+             "len": cache["len"]}
+        nxt = greedy(last, cfg.vocab)
+        ids, finite, step_ms = [], [], []
+        torch.cuda.synchronize()
+        for _ in range(LM_STEPS):
+            t = time.perf_counter()
+            lg, c = model.decode_step(nxt[:, None], c)
+            nxt = greedy(lg, cfg.vocab)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            ids.append(nxt)
+            finite.append(torch.isfinite(lg).all())
+        check(bool(torch.stack(finite).all()), "lm: non-finite decode logits")
+        return torch.stack(ids, dim=1), step_ms
+
+    ext.reset_launches()
+    decoded, step_ms = decode()
+    paths.append(("lm_decode", lm_path("lm_decode", ext.launch_counts()),
+                  shape_counts(ext.launch_shapes())))
+    wall_ms = sum(step_ms)
+    (decoded_again, _), prof = profiled(torch, decode, wall_ms)
+    check(bool((decoded < cfg.vocab).all()), "lm: decoded id past the vocab")
+    check(torch.equal(decoded, decoded_again),
+          "lm: two identical decode runs differ")
+
+    bf16, f32 = lm_flops(cfg, b, s)
+    nbytes = params * 2
+    prefill_bound = max(nbytes / HBM_BYTES_S,
+                        bf16 / BF16_OPS_S + f32 / FP32_OPS_S) * 1e3
+    # a decode step reads every weight but the embedding table (the
+    # einsum formulation runs every expert) and the KV cache up to its
+    # length, and writes one position of it
+    spec = cfg.attn_spec
+    kv_row = 2 * cfg.n_layers * b * spec.padded_kv_heads * spec.d_head * 2
+    mean_len = s + (LM_STEPS + 1) / 2
+    step_bytes = (params - cfg.padded_vocab * cfg.d_model) * 2 + \
+        kv_row * (mean_len + 1)
+    q = statistics.quantiles(step_ms, n=100)
+    out = dict(
+        arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, tp=cfg.tp,
+        experts=moe.padded_experts, top_k=moe.top_k, vocab=cfg.vocab,
+        padded_vocab=cfg.padded_vocab, params=params,
+        weights_gb=nbytes / 1e9, init_s=init_s, prompts=b, prompt_len=s,
+        max_len=LM_MAX_LEN, prefill_cold_ms=cold_ms, prefill_ms=prefill_ms,
+        prefill_tflop_bf16=bf16 / 1e12, prefill_tflop_f32=f32 / 1e12,
+        prefill_bound_ms=prefill_bound,
+        prefill_bound_all_bf16_ms=(bf16 + f32) / BF16_OPS_S * 1e3,
+        prefill_bit_identical=True, capacity=cap,
+        dropped_pairs=dropped, pairs=pairs, dropped_share=dropped / pairs,
+        dropped_share_by_layer=[d / (pairs / cfg.n_layers)
+                                for d in by_layer],
+        experts_used_per_row_by_layer=used,
+        decode_steps=LM_STEPS, decode_ms_median=statistics.median(step_ms),
+        decode_ms_p90=q[89], decode_ms_p99=q[98],
+        decode_ms_first=step_ms[0], decode_wall_ms=wall_ms,
+        decode_tokens_s=b * LM_STEPS / (wall_ms / 1e3),
+        decode_step_gb=step_bytes / 1e9,
+        decode_bound_ms=step_bytes / HBM_BYTES_S * 1e3,
+        decode_profile=prof)
+    del model, cache
+    return out, paths
+
+
+def lm_phase(torch, np, args) -> tuple:
+    """The MoE LM path (``LM_ARCH`` at every published width, tp = 1):
+    (a) `lm_parity`, (b) `lm_serve`.  Returns (phase dict, [(path,
+    launches, shapes)])."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    cfg = dataclasses.replace(registry.get(LM_ARCH).config, tp=1)
+    parity, paths = lm_parity(torch, np, args, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve, serve_paths = lm_serve(torch, np, args, cfg)
+    return dict(parity=parity, serve=serve), paths + serve_paths
+
+
 def flat_phases(torch, np, args, emits) -> tuple:
     """Phases 2-7 on the paper config's uniform corpus, in one scope so the
     index, its dense cache and the cache's host pool are freed when it
@@ -2170,7 +2486,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         attack, attack_paths, attack_rows = attack_phase(torch, np, args)
         attack_s = time.perf_counter() - t0
-    paths += text_paths + attack_paths
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Peaks(torch) as pk_lm:
+        t0 = time.perf_counter()
+        lm, lm_paths = lm_phase(torch, np, args)
+        lm_s = time.perf_counter() - t0
+    paths += text_paths + attack_paths + lm_paths
     score_row = next(k for k in kernels if k["name"] == "score_topk")
     score_row["at_shapes"] += text_rows + attack_rows
     launch_tally(kernels, paths)
@@ -2185,6 +2507,7 @@ def main(argv=None) -> int:
           **text})
     emit({"phase": "attack", "phase_s": attack_s,
           "memory": pk_attack.result, **attack})
+    emit({"phase": "lm", "phase_s": lm_s, "memory": pk_lm.result, **lm})
     emit({"phase": "summary", "build_s": build_s,
           "host_max_rss_gb": resource.getrusage(
               resource.RUSAGE_SELF).ru_maxrss / 1e6,

@@ -147,7 +147,17 @@ def transformer_params(tree: dict, cfg: TransformerConfig, *,
                        device: DeviceLike = None) -> Transformer:
     """A `Transformer` holding the reference's parameters: ``tree`` is the
     reference's ``init_params`` tree as nested dicts of numpy arrays.
-    Every parameter must be present, at the config's shapes."""
+    Every parameter must be present, at the config's shapes; a MoE tree
+    (``layers.moe.{router,w_gate,w_up,w_down}``, stacked (L, ...)) must
+    hold the config's padded expert count."""
+    if cfg.is_moe:
+        want = cfg.moe_spec.padded_experts
+        moe = tree["layers"]["moe"]
+        got = {name: np.shape(moe[name])[axis] for name, axis in
+               (("router", 2), ("w_gate", 1), ("w_up", 1), ("w_down", 1))}
+        if any(n != want for n in got.values()):
+            raise ValueError(f"MoE expert axes {got}: the config pads "
+                             f"{cfg.moe_experts} experts to {want}")
     model = Transformer(cfg, device=device)
     model.load_state_dict(_state_dict(tree, cfg), strict=True)
     return model

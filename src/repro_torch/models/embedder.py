@@ -52,7 +52,7 @@ class Embedder(nn.Module):
         at positions 0..S-1), final rms_norm, then mean pool: over every
         position, pads included, when ``mask`` is None (as the service
         calls it), else over the positions ``mask`` (B, S) weights."""
-        x = self.model.hidden(tokens, causal=False)
+        x, _ = self.model.hidden(tokens, causal=False)
         if mask is not None:
             m = torch.as_tensor(mask, device=x.device).to(x.dtype)
             x = x * m[..., None]

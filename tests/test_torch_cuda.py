@@ -774,3 +774,65 @@ def test_embedder_on_card_equals_cpu(cuda):
     want = cpu.embed(tokens)
     assert got.shape == (64, 768)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_moe_lm_on_card_equals_cpu(cuda):
+    """The reduced Qwen3-MoE config (float32, TF32 off) on the card against
+    the same weights on the CPU: prefill of 4 prompts x 24 tokens, then 3
+    decode steps fed the CPU's greedy tokens.  Routing ids equal wherever
+    a token's k-th/(k+1)-th router-logit gap exceeds 1e-4 on both devices;
+    logits within 1e-3 on the sequences with no token below that gap
+    (chip_smoke.py's lm gate)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ext
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import Transformer
+
+    cfg = registry.get("qwen3-moe-30b-a3b").reduced
+    cpu = Transformer(cfg, generator=torch.Generator().manual_seed(4),
+                      device="cpu")
+    card = Transformer(cfg, generator=torch.Generator().manual_seed(5),
+                       device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    tokens = np.random.default_rng(11).integers(0, cfg.vocab, size=(4, 24))
+
+    def run(model, feed):
+        record = []
+
+        def hook(mod, inputs, _out):
+            _, values, ids = moe_lib.route(mod, inputs[0], mod.spec)
+            k = mod.spec.top_k
+            record.append((ids[..., :k].cpu(),
+                           (values[..., k - 1] - values[..., k]).cpu()))
+
+        hooks = [blk.moe.register_forward_hook(hook) for blk in model.layers]
+        logits, cache = model.prefill(tokens, max_len=32)
+        outs, fed = [logits.cpu()], []
+        for step in range(3):
+            nxt = (outs[-1][:, -1, :cfg.vocab].argmax(-1) if feed is None
+                   else feed[step])
+            fed.append(nxt)
+            lg, cache = model.decode_step(nxt[:, None], cache)
+            outs.append(lg[:, None].cpu())
+        for h in hooks:
+            h.remove()
+        return outs, record, fed
+
+    want, rec_cpu, fed = run(cpu, None)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ext.reset_launches()
+    try:
+        got, rec_card, _ = run(card, fed)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert ext.launch_counts() == {}          # no kernel on the LM path
+    excluded = torch.zeros(4, dtype=torch.bool)
+    for (ids_a, gap_a), (ids_b, gap_b) in zip(rec_cpu, rec_card):
+        clear = torch.minimum(gap_a, gap_b) > 1e-4
+        excluded |= (~clear).any(dim=1)
+        assert not ((ids_a != ids_b).any(-1) & clear).any()
+    assert not excluded.all()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs()[~excluded].max()) <= 1e-3

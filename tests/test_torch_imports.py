@@ -20,7 +20,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for must in ("repro_torch.launch.serve", "repro_torch.serve.engine",
              "repro_torch.obs.trace", "repro_torch.serve.admission",
              "repro_torch.models.embedder", "repro_torch.core.attacks",
-             "repro_torch.examples.private_rag_serve"):
+             "repro_torch.examples.private_rag_serve",
+             "repro_torch.models.moe", "repro_torch.configs.registry"):
     assert must in names, must
 for name in names:
     importlib.import_module(name)

@@ -193,12 +193,6 @@ def test_embed_matches_reference(dim, masked):
     np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
 
 
-def test_moe_config_raises_not_implemented():
-    cfg = tt.TransformerConfig(**dict(TINY, moe_experts=4, moe_top_k=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tt.Transformer(cfg, device="cpu")
-
-
 def test_convert_rejects_a_tree_of_another_depth(tiny):
     params, _, _ = tiny
     with pytest.raises(ValueError, match="stacked layers"):
