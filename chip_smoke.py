@@ -111,13 +111,34 @@ counterpart of ``repro/configs/remoterag.py``: 10^6 documents of dimension
      share of (token, expert) pairs dropped to capacity, then 64 greedy
      decode steps: prefill wall and ms a decode step (median, p90, p99),
      tokens/s and the decode loop's device idle share, each time beside
-     its bound.
+     its bound;
+ 13. the training path (the ``train`` phase), Llama-3-8B
+     (``repro_torch/configs/llama3_8b.py``) at every published width with
+     tp = 1 (d_model 4096, 32 q / 8 kv heads x 128, d_ff 14336,
+     vocabulary 128,256 padded to 128,512): (a) 2 layers in float32
+     (TF32 off), drawn from a seeded CPU generator and loaded on the card;
+     one 1 x 256 ``LmSyntheticTask`` batch through the loss and its
+     gradients on both, then two AdamW ``apply``s of them: the loss within
+     1e-5 relative, every gradient within 1e-4 and every master within
+     1e-5 of the CPU's, normwise; (b) 4 of the 32 layers, bf16 parameters
+     with an fp32 master, m and v, remat on, drawn on the card:
+     ``make_lm_run`` over 8 x 4096 tokens a step in 8 microbatches, one
+     warm-up, 5 timed and one profiled step: ms a step (median, max),
+     tokens/s beside the step's FLOP bound, losses and grad norms (all
+     finite), launches and idle share a step, the busiest kernels, the
+     device peak; (c) ``examples/train_lm.py``'s config_100m for 90 steps
+     of 8 x 256 with a checkpoint every 30, straight through and again
+     through the example's drill (a failure at step 30, a restart), under
+     deterministic algorithms: the resumed history and state equal the
+     uninterrupted run's bit for bit and the last loss lies below the
+     first.
 
 Each path (one-at-a-time, batch, each engine and router run, the text
 pack and engines, each attack setting on the card, the LM's parity run,
-prefill and decode) runs with the launch counts set to 0 just before it
-and read just after, and every kernel of the path must have launched
-(the LM path has none: its counts must stay 0); the kernels line gives each
+prefill and decode, the training parity run, steps and drill) runs with
+the launch counts set to 0 just before it and read just after, and every
+kernel of the path must have launched (the LM and training paths have
+none: their counts must stay 0); the kernels line gives each
 kernel's launches over the paths, by path and by shape, and launches x
 (time - bound) per timed shape.  Every phase prints one JSON line with its
 wall time and its device and host memory peaks; the last line is the
@@ -144,6 +165,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# the train phase's fault drill runs under torch.use_deterministic_algorithms,
+# whose cuBLAS calls need a fixed workspace set before cuBLAS starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s, float32
 # outside the tensor cores, and int32 operations (132 SMs x 64 INT32 lanes
@@ -197,7 +221,23 @@ LM_ATOL = 1e-3      # logits, card against CPU, float32
 LM_LAYERS, LM_PROMPTS, LM_PROMPT_LEN, LM_MAX_LEN, LM_STEPS = \
     8, 8, 512, 1024, 64
 BF16_OPS_S = 989e12   # H100 SXM dense bf16 tensor-core peak (data sheet)
-LM_KERNELS = ()       # the LM path launches none of the five kernels
+LM_KERNELS = ()       # the LM paths (serving, training) launch none of the five
+# train phase: Llama-3-8B at every published width with tp = 1, as the
+# reference's single-axis FSDP training variants set it
+# (src/repro/configs/families.py), depth cut
+TRAIN_ARCH = "llama3-8b"
+# (a) parity anchor: 2 layers, float32 (TF32 off), one 1 x 256 batch
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ, TRAIN_PARITY_APPLY = 2, 256, 2
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_MASTER_RTOL = 1e-5, 1e-4, 1e-5
+# (b) the training run: 4 layers, bf16 params (fp32 master, m, v), remat;
+# a global batch of 8 x 4096 tokens (train_4k's length) in 8 microbatches
+# of one sequence (the reference's default); 1 warm-up + 5 timed steps
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = \
+    4, 8, 4096, 8, 5
+# (c) the fault drill: examples/train_lm.py's config_100m, a checkpoint
+# every 30 steps, a failure injected at step 30, a restart
+DRILL_STEPS, DRILL_EVERY, DRILL_FAIL, DRILL_BATCH, DRILL_SEQ = \
+    90, 30, 30, 8, 256
 
 
 def paper():
@@ -1121,16 +1161,29 @@ def walled(torch, fn) -> tuple:
     return r, (time.perf_counter() - t0) * 1e3, bops.mont_mul_counts()
 
 
-def profiled(torch, fn, wall_ms: float) -> tuple:
+def profiled(torch, fn, wall_ms: float, top: int = 0) -> tuple:
     """(fn(), device profile) for a repeat of work whose unprofiled wall
-    was ``wall_ms`` (torch.profiler, CUDA activity only)."""
+    was ``wall_ms`` (torch.profiler, CUDA activity only); with ``top``,
+    the profile also lists the ``top`` device kernels by summed time
+    (``top_kernels``: [name cut to 90 characters, ms, launches])."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         r = fn()
         torch.cuda.synchronize()
-    return r, device_profile(torch, prof, wall_ms)
+    out = device_profile(torch, prof, wall_ms)
+    if top:
+        by_name: dict = collections.defaultdict(lambda: [0.0, 0])
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                row = by_name[e.name[:90]]
+                row[0] += e.time_range.elapsed_us() / 1e3
+                row[1] += 1
+        out["top_kernels"] = sorted(([k, ms, n] for k, (ms, n) in
+                                     by_name.items()),
+                                    key=lambda r: -r[1])[:top]
+    return r, out
 
 
 def check_wire(accounting, res, key_bits: int, dim: int, kprime: int,
@@ -2044,9 +2097,9 @@ def attack_phase(torch, np, args) -> tuple:
 
 
 def lm_path(name: str, counts: dict) -> dict:
-    """The LM path runs none of the five kernels (``LM_KERNELS`` is
-    empty): fail if any launched in ``counts`` (one run, counts set to 0
-    just before it)."""
+    """The LM paths, serving and training, run none of the five kernels
+    (``LM_KERNELS`` is empty): fail if any launched in ``counts`` (one
+    run, counts set to 0 just before it)."""
     path_launches(name, counts, LM_KERNELS)
     check(not any(counts.values()),
           f"{name}: kernels launched on the LM path: {counts}")
@@ -2328,6 +2381,284 @@ def lm_phase(torch, np, args) -> tuple:
     return dict(parity=parity, serve=serve), paths + serve_paths
 
 
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want|| in float64, on ``got``'s device."""
+    want = want.to(got.device).double()
+    den = float(want.norm())
+    return float((got.double() - want).norm()) / den if den else \
+        float(got.double().norm())
+
+
+def train_parity(torch, np, args, cfg) -> tuple:
+    """(a) ``cfg`` at TRAIN_PARITY_LAYERS layers in float32 (TF32 off): one
+    set of weights drawn from a seeded CPU generator and loaded on the
+    card; one 1 x TRAIN_PARITY_SEQ `LmSyntheticTask` batch through the loss
+    and its gradients on both, then TRAIN_PARITY_APPLY AdamW ``apply``s of
+    those gradients on each.  Loss within TRAIN_LOSS_RTOL relative, every
+    gradient within TRAIN_GRAD_RTOL and every master within
+    TRAIN_MASTER_RTOL of the CPU's, normwise.  Returns (dict, [(path,
+    launches, shapes)])."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import LmSyntheticTask
+    from repro_torch.kernels import ext
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer
+
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_PARITY_LAYERS,
+                              dtype="float32")
+    t0 = time.perf_counter()
+    cpu = Transformer(cfg, generator=torch.Generator().manual_seed(args.seed),
+                      device="cpu")
+    init_s = time.perf_counter() - t0
+    card = Transformer(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    batch = LmSyntheticTask(vocab=cfg.vocab, seq_len=TRAIN_PARITY_SEQ,
+                            global_batch=1, seed=args.seed).batch(0)
+    ocfg = opt_lib.AdamWConfig()
+
+    def run(model):
+        """(loss, grads, state after the applies, seconds)."""
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        tokens, targets = (torch.from_numpy(b).to(model.device)
+                           for b in batch)
+        t = time.perf_counter()
+        loss, grads = trainer.value_and_grad(
+            lambda p, x, y: model.loss(x, y), params, (tokens, targets))
+        state = opt_lib.init(params, ocfg)
+        for _ in range(TRAIN_PARITY_APPLY):
+            _, state, _ = opt_lib.apply(grads, state, ocfg, params=params)
+        float(loss)                                   # waits for the device
+        return loss, grads, state, time.perf_counter() - t
+
+    want_loss, want_grads, want_state, cpu_s = run(cpu)
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    loss, grads, state, card_s = run(card)
+    torch.cuda.synchronize()
+    paths = [("train_parity", lm_path("train_parity", ext.launch_counts()),
+              shape_counts(ext.launch_shapes()))]
+    loss_err = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    check(loss_err <= TRAIN_LOSS_RTOL, f"train parity: loss off the CPU's by "
+                                       f"{loss_err} > {TRAIN_LOSS_RTOL}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          "train parity: non-finite gradients on the card")
+    grad_errs = {k: rel_err(g, want_grads[k]) for k, g in grads.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    check(grad_errs[worst] <= TRAIN_GRAD_RTOL,
+          f"train parity: gradient {worst} off the CPU's by "
+          f"{grad_errs[worst]} > {TRAIN_GRAD_RTOL}")
+    master_errs = {k: rel_err(m, want_state.master[k])
+                   for k, m in state.master.items()}
+    worst_m = max(master_errs, key=master_errs.get)
+    check(master_errs[worst_m] <= TRAIN_MASTER_RTOL,
+          f"train parity: master {worst_m} off the CPU's by "
+          f"{master_errs[worst_m]} > {TRAIN_MASTER_RTOL}")
+    check(int(state.step) == TRAIN_PARITY_APPLY, "train parity: step count")
+    out = dict(layers=cfg.n_layers, dtype=cfg.dtype, batch=1,
+               seq=TRAIN_PARITY_SEQ,
+               params=sum(p.numel() for p in card.parameters()),
+               init_cpu_s=init_s, cpu_s=cpu_s, card_s=card_s,
+               loss=float(loss), loss_cpu=float(want_loss),
+               loss_rel_err=loss_err, grad_max_rel_err=grad_errs[worst],
+               grad_worst=worst, applies=TRAIN_PARITY_APPLY,
+               master_max_rel_err=master_errs[worst_m],
+               master_worst=worst_m, loss_rtol=TRAIN_LOSS_RTOL,
+               grad_rtol=TRAIN_GRAD_RTOL, master_rtol=TRAIN_MASTER_RTOL)
+    del cpu, card, grads, want_grads, state, want_state
+    return out, paths
+
+
+def train_flops(cfg, b: int, s: int) -> tuple:
+    """(bf16 FLOP, float32 FLOP) of one training step over b sequences of
+    s tokens, forward and backward, as the work needs it: 6·N·T for the
+    matrix products (N: the q/k/v/o and SwiGLU weights of every layer and
+    the unembedding over the real vocabulary; the embedding is a lookup),
+    and 3x the causal attention's forward (scores and weighted values over
+    the s·(s+1)/2 query-key pairs, float32 in the port's online softmax).
+    Remat's recomputed forward is not counted."""
+    spec = cfg.attn_spec
+    hq = spec.padded_heads * spec.d_head
+    hkv = spec.padded_kv_heads * spec.d_head
+    n = cfg.n_layers * (cfg.d_model * (2 * hq + 2 * hkv)
+                        + 3 * cfg.d_model * cfg.d_ff) + cfg.d_model * cfg.vocab
+    bf16 = 6 * n * b * s
+    f32 = 3 * cfg.n_layers * b * 2 * 2 * (s * (s + 1) // 2) * hq
+    return bf16, f32, n
+
+
+def train_run(torch, np, args, cfg) -> tuple:
+    """(b) ``cfg`` at TRAIN_LAYERS layers, bf16 parameters with fp32
+    master, m and v, remat on, drawn on the card from a seeded CUDA
+    generator: `make_lm_run` with TRAIN_BATCH x TRAIN_SEQ tokens in
+    TRAIN_MICRO microbatches; one warm-up step, TRAIN_STEPS timed steps,
+    one profiled step.  Runs with the default (non-deterministic)
+    algorithms.  Returns (dict, [(path, launches, shapes)])."""
+    import dataclasses
+
+    from repro_torch.kernels import ext
+    from repro_torch.launch.train import make_lm_run
+
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    check(cfg.remat and cfg.dtype == "bfloat16" and cfg.tp == 1,
+          f"train run: config {cfg}")
+    steps = 1 + TRAIN_STEPS + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step_fn, batches_fn, state = make_lm_run(
+        cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=3e-4, steps=steps,
+        microbatches=TRAIN_MICRO, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in state[0].values())
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    history, step_ms = [], []
+
+    def step(i):
+        nonlocal state
+        batch = batches_fn(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step_fn(state, batch)       # ends reading the loss
+        torch.cuda.synchronize()
+        history.append(m)
+        return (time.perf_counter() - t) * 1e3
+
+    ext.reset_launches()
+    warm_ms = step(0)
+    step_ms = [step(1 + i) for i in range(TRAIN_STEPS)]
+    paths = [("train_step", lm_path("train_step", ext.launch_counts()),
+              shape_counts(ext.launch_shapes()))]
+    median = statistics.median(step_ms)
+    _, prof = profiled(torch, lambda: step(1 + TRAIN_STEPS), median, top=12)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in history), f"train run: non-finite loss or grad "
+                                 f"norm: {history}")
+    bf16, f32, n_matmul = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    bound_ms = (bf16 / BF16_OPS_S + f32 / FP32_OPS_S) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = dict(
+        arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, tp=cfg.tp,
+        remat=cfg.remat, params=params, matmul_params=n_matmul,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MICRO,
+        deterministic=False, init_s=init_s, state_gb=state_gb,
+        warmup_ms=warm_ms, step_ms=step_ms, step_ms_median=median,
+        step_ms_max=max(step_ms), tokens_s=tokens / (median / 1e3),
+        tflop_bf16=bf16 / 1e12, tflop_f32_attention=f32 / 1e12,
+        bound_ms=bound_ms, bound_by="operations",
+        bound_share=bound_ms / median,
+        losses=[h["loss"] for h in history],
+        grad_norms=[h["grad_norm"] for h in history],
+        lrs=[h["lr"] for h in history], step_profile=prof,
+        device_peak_gb=peak_gb)
+    del state, step_fn
+    return out, paths
+
+
+def train_drill(torch, np, args) -> tuple:
+    """(c) The fault drill on the card: ``examples/train_lm.py``'s
+    config_100m, DRILL_STEPS steps of DRILL_BATCH x DRILL_SEQ with a
+    checkpoint every DRILL_EVERY, straight through, and again through the
+    example's `drill` (a failure injected at DRILL_FAIL, a restart from
+    the newest checkpoint), each into its own temporary directory, under
+    ``torch.use_deterministic_algorithms``.  The resumed history and
+    final state must equal the uninterrupted run's bit for bit, and the
+    last loss lie below the first.  Returns (dict, [(path, launches,
+    shapes)])."""
+    import tempfile
+
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels import ext
+    from repro_torch.launch.train import make_lm_run
+    from repro_torch.train import fault
+
+    cfg = train_lm.config_100m()
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            ext.reset_launches()
+            t0 = time.perf_counter()
+            step_fn, batches_fn, state = make_lm_run(
+                cfg, batch=DRILL_BATCH, seq=DRILL_SEQ, lr=3e-3,
+                steps=DRILL_STEPS, device="cuda", seed=0)
+            run = fault.ResumableRun(os.path.join(tmp, "straight"),
+                                     checkpoint_every=DRILL_EVERY)
+            straight, done_a, hist_a = run.run(step_fn, state, batches_fn,
+                                               DRILL_STEPS)
+            torch.cuda.synchronize()
+            straight_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resumed, done_b, hist_b, monitor = train_lm.drill(
+                cfg, steps=DRILL_STEPS, batch=DRILL_BATCH, seq=DRILL_SEQ,
+                ckpt_dir=os.path.join(tmp, "drill"), ckpt_every=DRILL_EVERY,
+                fail_at=DRILL_FAIL, device="cuda")
+            torch.cuda.synchronize()
+            drill_s = time.perf_counter() - t0
+            counts = ext.launch_counts()
+            shapes = shape_counts(ext.launch_shapes())
+    finally:
+        torch.use_deterministic_algorithms(was)
+    paths = [("train_drill", lm_path("train_drill", counts), shapes)]
+    check(done_a == DRILL_STEPS and done_b == DRILL_STEPS - DRILL_FAIL,
+          f"train drill: ran {done_a} and {done_b} steps")
+    keys = ("loss", "grad_norm", "lr")
+    check([[h[k] for k in keys] for h in hist_b]
+          == [[h[k] for k in keys] for h in hist_a[DRILL_FAIL:]],
+          "train drill: the resumed history differs from the uninterrupted "
+          "run's")
+    same = all(torch.equal(a, b) for a, b in zip(
+        checkpoint_leaves(straight), checkpoint_leaves(resumed)))
+    check(same, "train drill: the resumed state differs from the "
+                "uninterrupted run's")
+    first, last = hist_a[0]["loss"], hist_b[-1]["loss"]
+    check(math.isfinite(last) and last < first,
+          f"train drill: loss {first} -> {last} did not decrease")
+    out = dict(arch=cfg.name, params=cfg.param_count(), steps=DRILL_STEPS,
+               checkpoint_every=DRILL_EVERY, fail_at=DRILL_FAIL,
+               batch=DRILL_BATCH, seq=DRILL_SEQ, deterministic=True,
+               resumed_steps=done_b, bit_identical=True, loss_first=first,
+               loss_last=last, straight_s=straight_s, drill_s=drill_s,
+               stragglers=len(monitor.straggler_steps))
+    del straight, resumed, step_fn, state
+    return out, paths
+
+
+def checkpoint_leaves(state) -> list:
+    """A training state's tensors in checkpoint order."""
+    from repro_torch.train import checkpoint
+
+    return [t for _, t in checkpoint._flatten(state)]
+
+
+def train_phase(torch, np, args) -> tuple:
+    """The training path (``TRAIN_ARCH`` at every published width, tp = 1,
+    depth cut): (a) `train_parity`, (b) `train_run`, (c) `train_drill`.
+    Returns (phase dict, [(path, launches, shapes)])."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    cfg = dataclasses.replace(registry.get(TRAIN_ARCH).config, tp=1)
+    out, paths = {}, []
+    for name, fn in (("parity", lambda: train_parity(torch, np, args, cfg)),
+                     ("run", lambda: train_run(torch, np, args, cfg)),
+                     ("drill", lambda: train_drill(torch, np, args))):
+        t0 = time.perf_counter()
+        part, part_paths = fn()
+        out[name] = dict(part, part_s=time.perf_counter() - t0)
+        paths += part_paths
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, paths
+
+
 def flat_phases(torch, np, args, emits) -> tuple:
     """Phases 2-7 on the paper config's uniform corpus, in one scope so the
     index, its dense cache and the cache's host pool are freed when it
@@ -2492,7 +2823,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         lm, lm_paths = lm_phase(torch, np, args)
         lm_s = time.perf_counter() - t0
-    paths += text_paths + attack_paths + lm_paths
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Peaks(torch) as pk_train:
+        t0 = time.perf_counter()
+        train, train_paths = train_phase(torch, np, args)
+        train_s = time.perf_counter() - t0
+    paths += text_paths + attack_paths + lm_paths + train_paths
     score_row = next(k for k in kernels if k["name"] == "score_topk")
     score_row["at_shapes"] += text_rows + attack_rows
     launch_tally(kernels, paths)
@@ -2508,6 +2845,8 @@ def main(argv=None) -> int:
     emit({"phase": "attack", "phase_s": attack_s,
           "memory": pk_attack.result, **attack})
     emit({"phase": "lm", "phase_s": lm_s, "memory": pk_lm.result, **lm})
+    emit({"phase": "train", "phase_s": train_s, "memory": pk_train.result,
+          **train})
     emit({"phase": "summary", "build_s": build_s,
           "host_max_rss_gb": resource.getrusage(
               resource.RUSAGE_SELF).ru_maxrss / 1e6,

@@ -19,6 +19,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.embedder import Embedder
 from repro_torch.models.transformer import Transformer, TransformerConfig
 from repro_torch.retrieval.index import ClusterMap, FlatIndex
+from repro_torch.train import optimizer as opt_lib
 
 
 def cluster_map(centroids: np.ndarray, starts: np.ndarray,
@@ -173,6 +174,21 @@ def embedder(tree: dict, cfg: TransformerConfig, *,
     return emb
 
 
+def opt_state(ref_state, cfg: TransformerConfig, *,
+              device: DeviceLike = None) -> opt_lib.OptState:
+    """The port's `optimizer.OptState` from a reference ``OptState`` of a
+    `Transformer`'s parameters: (step, master, m, v), the trees as nested
+    dicts of numpy arrays (``jax.tree.map(np.asarray, state)``), copied to
+    ``device`` under the model's state-dict names."""
+    dev = resolve_device(device)
+    step, master, m, v = ref_state
+    flat = lambda tree: {k: t.to(dev) for k, t in
+                         _state_dict(tree, cfg).items()}
+    return opt_lib.OptState(
+        step=torch.tensor(int(step), dtype=torch.int32, device=dev),
+        master=flat(master), m=flat(m), v=flat(v))
+
+
 __all__ = ["cluster_map", "flat_index", "candidate_cache", "sharded_candidate_cache",
            "secret_key", "paillier_public_key", "paillier_secret_key",
-           "transformer_params", "embedder"]
+           "transformer_params", "embedder", "opt_state"]

@@ -17,8 +17,16 @@ experts padded to a multiple of ``tp`` as in the reference.
 
 Entry points (methods of `Transformer`):
   forward(tokens)                  logits + MoE aux loss for training
-  loss(tokens, targets)            the forward part of ``loss_fn``
-  prefill / decode_step            serving with a KV cache
+  loss(tokens, targets)            ``loss_fn``: differentiable
+  prefill / decode_step            serving with a KV cache (no autograd)
+
+Parameters are built with ``requires_grad`` off, as a serving model holds
+no autograd state; a trainer turns it on (``model.requires_grad_(True)``,
+`repro_torch.launch.train.make_lm_run`).  With ``cfg.remat`` and autograd
+recording, `hidden` checkpoints each `Block`
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per
+scanned layer): a layer's activations are recomputed in the backward
+pass instead of kept.
 
 Left for later (ROADMAP queue 1, item 2): the multi-device items
 (``param_specs``, ``decode_param_specs``, ``fsdp_param_specs``,
@@ -33,6 +41,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers
@@ -158,6 +167,13 @@ class Block(nn.Module):
         return x + h, new_kv, aux
 
 
+def _block_out(blk: Block, x, cfg: TransformerConfig, positions,
+               causal: bool) -> tuple:
+    """(x out, aux) of one layer: the unit `Transformer.hidden` remats."""
+    x, _, aux = blk(x, cfg, positions, causal=causal)
+    return x, aux
+
+
 class Transformer(nn.Module):
     """Parameters ``embed`` (padded_vocab, d_model), ``layers.{i}``,
     ``final_norm`` and ``unembed`` (d_model, padded_vocab), as in the
@@ -195,19 +211,23 @@ class Transformer(nn.Module):
         x = self.embed[tokens]
         positions = torch.arange(tokens.shape[1], device=self.device)[None, :]
         aux = torch.zeros((), device=self.device)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.layers:
-            x, _, a = blk(x, self.cfg, positions, causal=causal)
+            if remat:
+                x, a = checkpoint.checkpoint(_block_out, blk, x, self.cfg,
+                                             positions, causal,
+                                             use_reentrant=False)
+            else:
+                x, a = _block_out(blk, x, self.cfg, positions, causal)
             aux = aux + a
         return layers.rms_norm(x, self.final_norm), aux
 
-    @torch.no_grad()
     def forward(self, tokens) -> tuple:
         """Training forward: tokens (B, S) -> (logits (B, S, padded_vocab),
         MoE aux loss averaged over the layers: 0 on the dense path)."""
         x, aux = self.hidden(tokens)
         return torch.matmul(x, self.unembed), aux / self.cfg.n_layers
 
-    @torch.no_grad()
     def loss(self, tokens, targets, *, aux_weight: float = 0.01) -> torch.Tensor:
         """Mean next-token NLL over the real vocabulary (the reference's
         ``loss_fn``)."""

@@ -836,3 +836,70 @@ def test_moe_lm_on_card_equals_cpu(cuda):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         assert float((g - w).abs()[~excluded].max()) <= 1e-3
+
+
+def _router_gap(model, tokens) -> float:
+    """Smallest k-th/(k+1)-th router-logit gap of a forward on ``tokens``
+    (inf on a dense model)."""
+    from repro_torch.models import moe as moe_lib
+
+    gaps = []
+
+    def hook(mod, inputs, _out):
+        _, values, _ = moe_lib.route(mod, inputs[0], mod.spec)
+        k = mod.spec.top_k
+        gaps.append(float((values[..., k - 1] - values[..., k]).min()))
+
+    hooks = [blk.moe.register_forward_hook(hook) for blk in model.layers
+             if hasattr(blk, "moe")]
+    with torch.no_grad():
+        model.forward(tokens)
+    for h in hooks:
+        h.remove()
+    return min(gaps, default=float("inf"))
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen3-moe-30b-a3b"])
+def test_train_step_card_equals_cpu(cuda, arch):
+    """Two `make_lm_run` steps (2 microbatches) of the reduced config from
+    the same weights, on the CPU and on the card, float32 with TF32 off:
+    losses within 1e-5 relative, parameters within 1e-4 normwise, no
+    kernel of ours launched.  Each step's batch must be clear of router
+    near-ties (gap > 1e-4) under the CPU's weights of that step."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import Transformer
+
+    cfg = registry.get(arch).reduced
+    cpu = Transformer(cfg, generator=torch.Generator().manual_seed(1),
+                      device="cpu")
+    card = Transformer(cfg, generator=torch.Generator().manual_seed(1),
+                       device=cuda)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ext.reset_launches()
+    try:
+        losses = []
+        for model in (cpu, card):
+            step_fn, batches_fn, state = train.make_lm_run(
+                cfg, batch=4, seq=32, lr=3e-3, steps=2, microbatches=2,
+                model=model)
+            hist = []
+            for i in range(2):
+                if model is cpu:
+                    assert _router_gap(cpu, batches_fn(i)[0]) > 1e-4
+                state, m = step_fn(state, batches_fn(i))
+                hist.append(m)
+            losses.append(hist)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert ext.launch_counts() == {}
+    for got, want in zip(losses[1], losses[0]):
+        assert np.isfinite(got["loss"]) and np.isfinite(got["grad_norm"])
+        assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+    want = dict(cpu.named_parameters())
+    for k, p in card.named_parameters():
+        w = want[k].detach().double()
+        err = torch.linalg.vector_norm(p.detach().cpu().double() - w)
+        assert float(err) <= 1e-4 * float(torch.linalg.vector_norm(w)), k

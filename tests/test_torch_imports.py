@@ -1,4 +1,4 @@
-"""Import hygiene of the port: with JAX made unimportable, every
+"""Import hygiene of the port: with JAX (and msgpack) made unimportable, every
 ``repro_torch`` module and every module ``chip_smoke.py`` imports must
 load, no module of the JAX package may be loaded, and no kernel build may
 start (kernels build at their first launch, never at import)."""
@@ -14,6 +14,7 @@ ROOT = Path(__file__).resolve().parents[1]
 CHECK = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None                 # any `import jax` now fails
+sys.modules["msgpack"] = None             # the port's checkpoints use JSON
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -21,7 +22,11 @@ for must in ("repro_torch.launch.serve", "repro_torch.serve.engine",
              "repro_torch.obs.trace", "repro_torch.serve.admission",
              "repro_torch.models.embedder", "repro_torch.core.attacks",
              "repro_torch.examples.private_rag_serve",
-             "repro_torch.models.moe", "repro_torch.configs.registry"):
+             "repro_torch.models.moe", "repro_torch.configs.registry",
+             "repro_torch.data.pipeline", "repro_torch.train.optimizer",
+             "repro_torch.train.trainer", "repro_torch.train.checkpoint",
+             "repro_torch.train.fault", "repro_torch.train.compress",
+             "repro_torch.launch.train", "repro_torch.examples.train_lm"):
     assert must in names, must
 for name in names:
     importlib.import_module(name)

@@ -60,7 +60,8 @@ def test_moe_forward_and_loss_match_reference(moe_lm):
     tokens = np.random.default_rng(8).integers(
         0, jcfg.vocab, size=(3, 20)).astype(np.int32)
     want, want_aux = _forward(params, jcfg, jnp.asarray(tokens))
-    got, aux = model.forward(tokens)
+    with torch.no_grad():
+        got, aux = model.forward(tokens)
     assert got.shape == (3, 20, jcfg.padded_vocab)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-4)
@@ -69,7 +70,9 @@ def test_moe_forward_and_loss_match_reference(moe_lm):
     targets = np.roll(tokens, -1, axis=1)
     want_loss = float(_loss(params, jcfg, jnp.asarray(tokens),
                             jnp.asarray(targets)))
-    assert abs(float(model.loss(tokens, targets)) - want_loss) <= 1e-5
+    with torch.no_grad():
+        loss = model.loss(tokens, targets)
+    assert abs(float(loss) - want_loss) <= 1e-5
 
 
 def test_moe_prefill_and_decode_match_reference(moe_lm):
@@ -196,7 +199,8 @@ def test_dense_reduced_config_forward_matches_reference():
     tokens = np.random.default_rng(10).integers(
         0, jcfg.vocab, size=(2, 8)).astype(np.int32)
     want, _ = _forward(params, jcfg, jnp.asarray(tokens))
-    got, aux = model.forward(tokens)
+    with torch.no_grad():
+        got, aux = model.forward(tokens)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-4)
     assert float(aux) == 0.0

@@ -136,13 +136,16 @@ def test_forward_and_loss_match_reference(tiny):
     tokens = np.random.default_rng(4).integers(0, 997, size=(2, 12)).astype(
         np.int32)
     want, _ = jt.forward(params, jcfg, jnp.asarray(tokens))
-    got, aux = model.forward(tokens)
+    with torch.no_grad():
+        got, aux = model.forward(tokens)
     assert got.shape == (2, 12, jcfg.padded_vocab) and float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-4)
     targets = np.roll(tokens, -1, axis=1)
     want_loss = float(jt.loss_fn(params, jcfg, jnp.asarray(tokens),
                                  jnp.asarray(targets)))
-    assert abs(float(model.loss(tokens, targets)) - want_loss) < 1e-4
+    with torch.no_grad():
+        loss = model.loss(tokens, targets)
+    assert abs(float(loss) - want_loss) < 1e-4
 
 
 def test_prefill_and_decode_match_forward(tiny):
@@ -152,7 +155,8 @@ def test_prefill_and_decode_match_forward(tiny):
     params, jcfg, model = tiny
     tokens = np.random.default_rng(5).integers(0, 997, size=(1, 12)).astype(
         np.int32)
-    full, _ = model.forward(tokens)
+    with torch.no_grad():
+        full, _ = model.forward(tokens)
     logits_pre, cache = model.prefill(tokens[:, :8], max_len=16)
     np.testing.assert_allclose(logits_pre.numpy(), full[:, :8].numpy(),
                                rtol=2e-4, atol=2e-4)
