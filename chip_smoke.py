@@ -131,14 +131,34 @@ counterpart of ``repro/configs/remoterag.py``: 10^6 documents of dimension
      through the example's drill (a failure at step 30, a restart), under
      deterministic algorithms: the resumed history and state equal the
      uninterrupted run's bit for bit and the last loss lies below the
-     first.
+     first;
+ 14. the multi-device paths (the ``mesh`` phase, `mesh_phase`): (a) a
+     world of one ``nccl`` rank, mesh (1,): the 10^6 x 768 corpus built
+     with ``FlatIndex.build(mesh=)``, whose ``distributed_topk`` of the
+     batch's 8 perturbed queries (k' = 161) must equal step 4's flat scan
+     bit for bit; (b) 4 ranks co-located on the card, started with the
+     spawn method, ``gloo`` (collectives of CUDA tensors staged through
+     host memory and counted), mesh (2, 2) ("data", "model"): the first
+     stage over both axes (250,000 rows a rank) equal to (a) bit for bit;
+     8 requests of 4 tenants through ``run_remoterag`` and again as one
+     batch over a 2^17-doc mesh index (each rank draws its own
+     perturbation; the first rank's is searched), equal to one process on
+     the same corpus (ids, wire bytes, the batch's candidates and
+     decrypted scores); the MoE layer of Qwen3-30B-A3B at its published
+     width over 8 x 512 tokens (tokens over "data", 64 experts a rank over
+     "model"), float32 within 1e-5 of the einsum layer in one process
+     (relative to its largest output; aux within 1e-5 relative), then
+     timed in bf16 beside the single-process layer; the walls of the
+     first stage's all-gather and the combine's all-reduce.  Every rank
+     loads the parent's kernel build (its mtime unchanged).
 
 Each path (one-at-a-time, batch, each engine and router run, the text
 pack and engines, each attack setting on the card, the LM's parity run,
-prefill and decode, the training parity run, steps and drill) runs with
+prefill and decode, the training parity run, steps and drill, the mesh
+phase's searches, round and MoE layer, on every rank) runs with
 the launch counts set to 0 just before it and read just after, and every
-kernel of the path must have launched (the LM and training paths have
-none: their counts must stay 0); the kernels line gives each
+kernel of the path must have launched (the LM, training and mesh MoE
+paths have none: their counts must stay 0); the kernels line gives each
 kernel's launches over the paths, by path and by shape, and launches x
 (time - bound) per timed shape.  Every phase prints one JSON line with its
 wall time and its device and host memory peaks; the last line is the
@@ -157,6 +177,7 @@ import gc
 import math
 import os
 import resource
+import shutil
 import statistics
 import subprocess
 import sys
@@ -238,6 +259,14 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = \
 # every 30 steps, a failure injected at step 30, a restart
 DRILL_STEPS, DRILL_EVERY, DRILL_FAIL, DRILL_BATCH, DRILL_SEQ = \
     90, 30, 30, 8, 256
+# mesh phase: (a) one nccl rank; (b) MESH_WORLD ranks co-located on the one
+# card (gloo), mesh MESH_SHAPE; the round's corpus is cut from 10^6 to
+# 2^17 docs (every rank builds the whole dense cache, as the reference's
+# mesh index does, and four 10^6-doc caches of 49 GB cannot share a card);
+# the MoE layer at LM_ARCH's width over MESH_MOE_BATCH x MESH_MOE_SEQ tokens
+MESH_WORLD, MESH_SHAPE, MESH_AXES = 4, (2, 2), ("data", "model")
+MESH_ROUND_DOCS = 2**17
+MESH_MOE_BATCH, MESH_MOE_SEQ, MESH_MOE_REPS = 8, 512, 10
 
 
 def paper():
@@ -748,7 +777,9 @@ def serve_phase(torch, np, args, index, cloud, params, plan,
     check(all(r == 1.0 for r in recalls),
           f"recall@{plan.k} {recalls}; k-th/(k+1)-th plaintext gaps {gaps}")
     check(max_err <= 2e-3, f"decrypted scores off by {max_err}")
-    shared = dict(cand=cand, enc=enc, want=want, gaps=gaps)
+    shared = dict(cand=cand, enc=enc, want=want, gaps=gaps,
+                  first=dict(pert=pert.cpu(), values=res.values.cpu(),
+                             indices=res.indices.cpu(), kprime=plan.kprime))
     return shared, dict(requests=nq, tenants=TENANTS, recall_at_k=recalls,
                 kth_gap=gaps,
                 max_score_err=max_err, seq_request_ms=seq_ms,
@@ -2659,11 +2690,430 @@ def train_phase(torch, np, args) -> tuple:
     return out, paths
 
 
+# -- mesh phase ---------------------------------------------------------------
+
+def mesh_dir() -> Path:
+    """Scratch files of the mesh phase (under the checkout's gitignored
+    build directory; removed when the phase ends)."""
+    return ROOT / "build" / "mesh_phase"
+
+
+def mesh_users(np, params, plan, dim: int, n_docs: int, seed: int) -> list:
+    from repro_torch.core import protocol
+
+    return [protocol.RemoteRagUser(
+        n=dim, N=n_docs, k=plan.k, plan=plan, rlwe_params=params,
+        rng=np.random.default_rng(seed + 100 + t)) for t in range(TENANTS)]
+
+
+def mesh_round(torch, np, index, docs, queries, plan, params,
+               seed: int, gen_seed: int) -> dict:
+    """REQUESTS requests of TENANTS tenants through ``run_remoterag``, then
+    the same requests as one batch (perturb_batch -> topk_batch ->
+    encrypted_scores_cached_batch -> decrypt_scores_batch); the DistanceDP
+    generators (on the card) seeded from ``gen_seed``.  Returns the ids,
+    wire bytes, the batch's candidates and decrypted scores (host)."""
+    from repro_torch.core import protocol
+    from repro_torch.serve import batching
+
+    cloud = protocol.RemoteRagCloud(index, rlwe_params=params)
+    gens = lambda: [torch.Generator(device="cuda").manual_seed(gen_seed + j)
+                    for j in range(len(queries))]
+    out = {}
+    users = mesh_users(np, params, plan, index.dim, index.num_rows, seed)
+    for j, g in enumerate(gens()):
+        got, ids, tr = protocol.run_remoterag(users[j % TENANTS], cloud,
+                                              queries[j], g)
+        check(got == [docs[int(i)] for i in ids],
+              f"mesh round request {j}: documents do not match ids")
+        out[f"ids{j}"] = np.asarray(ids)
+        out[f"bytes{j}"] = np.array([tr.request_bytes, tr.reply_bytes,
+                                     tr.fetch_bytes, tr.docs_bytes,
+                                     tr.total_bytes])
+    users = mesh_users(np, params, plan, index.dim, index.num_rows, seed)
+    lanes = [users[j % TENANTS] for j in range(len(queries))]
+    pert = batching.perturb_batch(gens(), queries,
+                                  [plan.eps] * len(queries))
+    res = batching.topk_batch(index, pert, plan.kprime)
+    enc = [u.encrypt_query(e) for u, e in zip(lanes, queries)]
+    sc = batching.encrypted_scores_cached_batch(
+        params, enc, cloud.candidate_cache, res.indices)
+    out["batch_ids"] = res.indices.cpu().numpy()
+    out["batch_scores"] = np.stack(batching.decrypt_scores_batch(
+        [u.sk for u in lanes], sc))
+    torch.cuda.synchronize()
+    return out
+
+
+def moe_layer_spec(mesh=None):
+    """The MoE layer of LM_ARCH at its published width, tp = 1; over
+    ``mesh``: tokens over "data", experts over "model" (shard_a2a)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    spec = dataclasses.replace(registry.get(LM_ARCH).config, tp=1).moe_spec
+    if mesh is None:
+        return spec
+    return dataclasses.replace(spec, batch_axes=("data",), ep_axis="model",
+                               impl="shard_a2a", mesh=mesh)
+
+
+def moe_inputs(torch, spec, seed: int) -> tuple:
+    """(layer, tokens (MESH_MOE_BATCH, MESH_MOE_SEQ, d)) drawn on the card
+    from seeded CUDA generators: the same bits in every process."""
+    from repro_torch.models import moe as moe_lib
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    layer = moe_lib.Moe(spec, gen, gen.device)
+    gen.manual_seed(seed + 1)
+    x = torch.randn((MESH_MOE_BATCH, MESH_MOE_SEQ, spec.d_model),
+                    generator=gen, device=gen.device)
+    return layer, x
+
+
+def walls_ms(torch, fn, reps: int, barrier=None) -> list:
+    """Host walls of ``reps`` calls of ``fn``, each between two
+    synchronizes (after ``barrier``, when given, so co-located ranks start
+    together)."""
+    fn()
+    out = []
+    for _ in range(reps):
+        if barrier is not None:
+            barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def mesh_rank(rank: int, workdir: str, cfg: dict) -> None:
+    """One of the MESH_WORLD co-located ranks of the mesh phase (b): gloo
+    on CUDA tensors of ``cuda:0``, mesh MESH_SHAPE.  Writes its results to
+    ``workdir``/rank{rank}.json and .npz."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ext
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wd = Path(workdir)
+    info, arrays = {"rank": rank}, {}
+    t0 = time.perf_counter()
+    ext.extension()                     # the parent's build, loaded
+    info["load_s"] = time.perf_counter() - t0
+    info["so_mtime"] = so_mtime()
+    # this process's own peaks (ru_maxrss would carry the parent's across
+    # the spawn's exec)
+    with Peaks(torch) as peaks:
+        mesh_lib.init_ranks("gloo", store_path=wd / "store4", rank=rank,
+                            world_size=MESH_WORLD, timeout_s=600)
+        try:
+            mesh_rank_paths(torch, np, wd, cfg, rank, info, arrays)
+        finally:
+            mesh_lib.shutdown()
+    info["memory"] = peaks.result
+    np.savez(wd / f"rank{rank}.npz", **arrays)
+    (wd / f"rank{rank}.json").write_text(json.dumps(info))
+
+
+def mesh_rank_paths(torch, np, wd: Path, cfg: dict, rank: int, info: dict,
+                    arrays: dict) -> None:
+    """A mesh rank's paths (see `mesh_rank`): results into ``info`` (JSON)
+    and ``arrays`` (host arrays)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import planner
+    from repro_torch.data import synth
+    from repro_torch.kernels import ext
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.mesh import ShardSpec
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer
+    from repro_torch.retrieval.index import FlatIndex
+    from repro_torch.retrieval.topk import distributed_topk
+
+    mesh = mesh_lib.make_mesh(MESH_SHAPE, MESH_AXES, device="cuda",
+                              backend="gloo")
+    comms = mesh.repro_comms
+    barrier = dist.barrier
+
+    def path(name, fn):
+        """Run ``fn`` with the launch counts set to 0 just before it and
+        read just after; host copies counted beside."""
+        copies = comms.host_copies, comms.host_bytes
+        torch.cuda.synchronize()
+        barrier()
+        ext.reset_launches()
+        t_start = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        info[name] = dict(
+            wall_ms=(time.perf_counter() - t_start) * 1e3,
+            launches=ext.launch_counts(),
+            shapes=shape_counts(ext.launch_shapes()),
+            host_copies=comms.host_copies - copies[0],
+            host_bytes=comms.host_bytes - copies[1])
+        return r
+
+    # -- first stage: 10^6 x 768 over both axes -----------------------
+    emb = np.load(wd / "corpus.npy", mmap_mode="r")
+    index = FlatIndex.build(emb, mesh=mesh, normalize=False)
+    del emb
+    info["first_rows"] = [index.num_rows, index.embeddings.shape[0]]
+    q = torch.from_numpy(np.load(wd / "queries.npy")).cuda()
+    res = path("first_stage", lambda: distributed_topk(
+        index, q, cfg["kprime"]))
+    arrays["first_v"] = res.values.cpu().numpy()
+    arrays["first_i"] = res.indices.cpu().numpy()
+    payload = torch.zeros((q.shape[0], 2 * cfg["kprime"] + 1),
+                          device=q.device)
+    info["all_gather_ms"] = walls_ms(
+        torch, lambda: mesh_lib.all_gather(payload, mesh, MESH_AXES), 10,
+        barrier)
+    del index
+    torch.cuda.empty_cache()
+
+    # -- the round over a 2^17-doc mesh index ---------------------------
+    n_docs, dim = cfg["round_docs"], cfg["dim"]
+    corpus = synth.uniform_corpus(np.random.default_rng(cfg["seed"] + 7),
+                                  n_docs, dim)
+    queries = synth.queries_near_corpus(
+        np.random.default_rng(cfg["seed"] + 8), corpus, REQUESTS)
+    docs = [f"passage-{i}".encode() for i in range(n_docs)]
+    index = FlatIndex.build(corpus, documents=docs, mesh=mesh)
+    del corpus
+    plan = planner.plan(n=dim, N=n_docs, k=cfg["k"], kprime=cfg["knob"])
+    params = cfg["rlwe"]
+    t0 = time.perf_counter()
+    index.candidate_cache(params)   # gathered rows, the whole dense cache
+    torch.cuda.synchronize()
+    info["round_cache_s"] = time.perf_counter() - t0
+    # each rank draws its own perturbation; rank 0's is searched
+    got = path("round", lambda: mesh_round(
+        torch, np, index, docs, queries, plan, params, cfg["seed"],
+        cfg["gen_seed"] + 1000 * rank))
+    arrays.update({f"round_{k}": v for k, v in got.items()})
+    del index
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the MoE layer at Qwen3-30B-A3B's width --------------------------
+    spec = moe_layer_spec(mesh)
+    layer, x = moe_inputs(torch, spec, cfg["seed"])
+    experts = {"router": ShardSpec.of(None, None),
+               **{w: ShardSpec.of("model")
+                  for w in ("w_gate", "w_up", "w_down")}}
+    transformer.shard_params(layer, mesh, experts)
+    b_loc = x.shape[0] // mesh_lib.axes_size(mesh, ("data",))
+    pos = mesh_lib.axes_position(mesh, ("data",))
+    x = x[pos * b_loc:(pos + 1) * b_loc].contiguous()
+    info["moe_experts_local"] = layer.w_gate.shape[0]
+    with torch.no_grad():
+        o, aux = path("moe_f32", lambda: moe_lib.moe_fwd(layer, x, spec))
+        arrays["moe_o"] = o.cpu().numpy()
+        arrays["moe_aux"] = aux.cpu().numpy()
+        layer.to(torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        info["moe_bf16_ms"] = walls_ms(
+            torch, lambda: moe_lib.moe_fwd(layer, xb, spec),
+            MESH_MOE_REPS, barrier)
+        part = torch.zeros_like(xb)
+        info["all_reduce_ms"] = walls_ms(
+            torch, lambda: mesh_lib.all_reduce(part, mesh, ("model",)),
+            MESH_MOE_REPS, barrier)
+    info["host_copies"] = comms.host_copies
+    info["host_bytes"] = comms.host_bytes
+
+
+def so_mtime() -> float:
+    """Modification time of the built extension (0 if there is none)."""
+    from repro_torch.kernels import ext
+
+    found = list(ext.BUILD_DIR.glob("*.so"))
+    return max((f.stat().st_mtime for f in found), default=0.0)
+
+
+def mesh_phase(torch, np, args, first: dict) -> tuple:
+    """The multi-device paths on one card (the ``mesh`` phase):
+    (a) world 1, ``nccl``, mesh (1,): the paper config's 10^6 x 768 index
+    built with ``mesh=``, whose ``distributed_topk`` of the serve phase's
+    8 perturbed queries must equal that phase's flat scan bit for bit;
+    (b) MESH_WORLD ranks co-located on ``cuda:0`` (``gloo``, collectives of
+    CUDA tensors staged through host memory), mesh MESH_SHAPE, started with
+    the spawn method: the first stage at 10^6 x 768 over both axes equal to
+    (a) bit for bit; the RemoteRAG round (REQUESTS requests through
+    ``run_remoterag``, then as one batch) over a 2^17-doc mesh index equal
+    to the single-process round on the same corpus (ids, decrypted scores,
+    wire bytes); the MoE layer of LM_ARCH at its published width (tokens
+    over "data", experts over "model"), float32 within 1e-5 of the einsum
+    layer in one process (relative to its largest output), then timed in
+    bf16.  Returns (phase dict, [(path, launches, shapes)])."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import planner
+    from repro_torch.data import synth
+    from repro_torch.kernels import ext
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.retrieval.index import FlatIndex
+    from repro_torch.retrieval.topk import distributed_topk
+
+    cfg = paper()
+    wd = mesh_dir()                 # holds the flat phases' corpus.npy
+    out, paths = {}, []
+    try:
+        # -- (a) world 1, nccl ------------------------------------------------
+        t0 = time.perf_counter()
+        mesh_lib.init_ranks("nccl", store_path=wd / "store1", rank=0,
+                            world_size=1)
+        try:
+            mesh = mesh_lib.make_mesh((1,), ("data",), device="cuda",
+                                      backend="nccl")
+            index = FlatIndex.build(np.load(wd / "corpus.npy", mmap_mode="r"),
+                                    mesh=mesh, normalize=False)
+            q = first["pert"].cuda()
+            torch.cuda.synchronize()
+            ext.reset_launches()
+            t1 = time.perf_counter()
+            res = distributed_topk(index, q, first["kprime"])
+            torch.cuda.synchronize()
+            a_ms = (time.perf_counter() - t1) * 1e3
+            counts = path_launches("mesh_nccl_world1", ext.launch_counts(),
+                                   ("score_topk",))
+            paths.append(("mesh_nccl_world1", counts,
+                          shape_counts(ext.launch_shapes())))
+            check(torch.equal(res.values.cpu(), first["values"])
+                  and torch.equal(res.indices.cpu(), first["indices"]),
+                  "mesh (a): world-1 nccl search differs from the flat scan")
+            warm = walls_ms(torch, lambda: distributed_topk(
+                index, q, first["kprime"]), 5)
+            np.save(wd / "queries.npy", first["pert"].numpy())
+            del index
+        finally:
+            mesh_lib.shutdown()
+        out["nccl_world1"] = dict(first_ms=a_ms, warm_ms=warm,
+                                  part_s=time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- single-process references for (b) ------------------------------
+        t0 = time.perf_counter()
+        n_docs = MESH_ROUND_DOCS
+        corpus = synth.uniform_corpus(np.random.default_rng(args.seed + 7),
+                                      n_docs, cfg.DIM)
+        queries = synth.queries_near_corpus(
+            np.random.default_rng(args.seed + 8), corpus, REQUESTS)
+        docs = [f"passage-{i}".encode() for i in range(n_docs)]
+        index = FlatIndex.build(corpus, documents=docs)
+        del corpus
+        plan = planner.plan(n=cfg.DIM, N=n_docs, k=cfg.K, kprime=cfg.KPRIME)
+        single = mesh_round(torch, np, index, docs, queries, plan, cfg.RLWE,
+                            args.seed, args.seed * 1000 + 17)
+        del index
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec = moe_layer_spec()
+        layer, x = moe_inputs(torch, spec, args.seed)
+        half = x.shape[0] // MESH_SHAPE[0]
+        with torch.no_grad():
+            # one process, one "data" shard at a time: the router's
+            # products have the ranks' shapes, so routing is bit-equal
+            shards = [moe_lib.moe_fwd_einsum(layer, x[i:i + half], spec)
+                      for i in range(0, x.shape[0], half)]
+            moe_o = torch.cat([o for o, _ in shards]).cpu()
+            moe_aux = float(sum(a for _, a in shards)) / len(shards)
+            layer.to(torch.bfloat16)
+            xb = x.to(torch.bfloat16)
+            single_bf16 = walls_ms(torch, lambda: moe_lib.moe_fwd_einsum(
+                layer, xb, spec), MESH_MOE_REPS)
+        del layer, x, xb, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["references_s"] = time.perf_counter() - t0
+
+        # -- (b) co-located ranks, gloo -------------------------------------
+        rank_cfg = dict(kprime=first["kprime"], seed=args.seed,
+                        gen_seed=args.seed * 1000 + 17, round_docs=n_docs,
+                        dim=cfg.DIM, k=cfg.K, knob=cfg.KPRIME, rlwe=cfg.RLWE)
+        mtime = so_mtime()
+        t0 = time.perf_counter()
+        mp.spawn(mesh_rank, args=(str(wd), rank_cfg), nprocs=MESH_WORLD,
+                 join=True)
+        ranks_s = time.perf_counter() - t0
+        infos = [json.loads((wd / f"rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+        arrays = [dict(np.load(wd / f"rank{r}.npz"))
+                  for r in range(MESH_WORLD)]
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+
+    moe_err = 0.0
+    scale = float(moe_o.abs().max())
+    half = MESH_MOE_BATCH // MESH_SHAPE[0]
+    for r, (info, arr) in enumerate(zip(infos, arrays)):
+        check(info["so_mtime"] == mtime,
+              f"mesh rank {r} rebuilt the kernels")
+        check(info["first_rows"] == [args.n_docs,
+                                     args.n_docs // MESH_WORLD],
+              f"mesh rank {r}: block {info['first_rows']}")
+        check(np.array_equal(arr["first_v"], first["values"].numpy())
+              and np.array_equal(arr["first_i"], first["indices"].numpy()),
+              f"mesh rank {r}: first stage differs from (a)")
+        for key, want in single.items():
+            check(np.array_equal(arr[f"round_{key}"], want),
+                  f"mesh rank {r}: round {key} differs from one process")
+        pos = r // MESH_SHAPE[1]          # the rank's "data" position
+        want = moe_o[pos * half:(pos + 1) * half].numpy()
+        moe_err = max(moe_err, float(np.abs(arr["moe_o"] - want).max()))
+        check(abs(float(arr["moe_aux"]) - moe_aux) <= 1e-5 * abs(moe_aux),
+              f"mesh rank {r}: aux {float(arr['moe_aux'])} vs {moe_aux}")
+        path_launches(f"mesh rank {r} first stage",
+                      info["first_stage"]["launches"], ("score_topk",))
+        path_launches(f"mesh rank {r} round", info["round"]["launches"])
+        lm_path(f"mesh rank {r} moe", info["moe_f32"]["launches"])
+    check(moe_err <= 1e-5 * scale,
+          f"mesh MoE off by {moe_err} (largest output {scale})")
+    for part in ("first_stage", "round", "moe_f32"):
+        total = collections.Counter()
+        shapes = []
+        for info in infos:
+            total.update(info[part]["launches"])
+            shapes += info[part]["shapes"]
+        paths.append((f"mesh_{part}", dict(total), shapes))
+    med = lambda xs: statistics.median(xs)
+    out.update(
+        world=MESH_WORLD, shape=list(MESH_SHAPE), axes=list(MESH_AXES),
+        round_docs=MESH_ROUND_DOCS, moe_tokens=[MESH_MOE_BATCH, MESH_MOE_SEQ],
+        ranks_s=ranks_s,
+        moe_max_abs_err=moe_err, moe_scale=scale, moe_aux=moe_aux,
+        moe_single_bf16_ms=med(single_bf16),
+        ranks=[dict(
+            rank=i["rank"], load_s=i["load_s"],
+            round_cache_s=i["round_cache_s"],
+            moe_experts_local=i["moe_experts_local"],
+            all_gather_ms=med(i["all_gather_ms"]),
+            all_reduce_ms=med(i["all_reduce_ms"]),
+            moe_bf16_ms=med(i["moe_bf16_ms"]),
+            host_copies=i["host_copies"], host_bytes=i["host_bytes"],
+            memory=i["memory"],
+            **{part: {k: v for k, v in i[part].items() if k != "shapes"}
+               for part in ("first_stage", "round", "moe_f32")})
+            for i in infos])
+    return out, paths
+
+
 def flat_phases(torch, np, args, emits) -> tuple:
     """Phases 2-7 on the paper config's uniform corpus, in one scope so the
     index, its dense cache and the cache's host pool are freed when it
     returns.  Appends the phases' JSON lines to ``emits``; returns (kernel
-    rows, [(path, launches, shapes)])."""
+    rows, [(path, launches, shapes)], the batch's first stage: its
+    perturbed queries, flat-scan values and ids, and k'); leaves the
+    normalized corpus in `mesh_dir` for the mesh phase."""
     from repro_torch.core import planner, protocol
     from repro_torch.crypto import rlwe
     from repro_torch.data import synth
@@ -2685,6 +3135,10 @@ def flat_phases(torch, np, args, emits) -> tuple:
     del corpus
     torch.cuda.synchronize()
     index_s = time.perf_counter() - t0
+    # the mesh phase builds its indexes from these normalized rows
+    shutil.rmtree(mesh_dir(), ignore_errors=True)
+    mesh_dir().mkdir(parents=True)
+    np.save(mesh_dir() / "corpus.npy", index.embeddings.cpu().numpy())
     plan = planner.plan(n=dim, N=args.n_docs, k=k, kprime=kprime_knob)
     cloud = protocol.RemoteRagCloud(index, rlwe_params=params)
     torch.cuda.reset_peak_memory_stats()
@@ -2753,7 +3207,7 @@ def flat_phases(torch, np, args, emits) -> tuple:
     for run in engine.values():
         run.pop("shapes")
     router.pop("shapes")
-    return kernels, paths
+    return kernels, paths, shared["first"]
 
 
 def main(argv=None) -> int:
@@ -2790,7 +3244,7 @@ def main(argv=None) -> int:
           "device": torch.cuda.get_device_name(0), "build_s": build_s})
 
     emits: list = []
-    kernels, paths = flat_phases(torch, np, args, emits)
+    kernels, paths, first = flat_phases(torch, np, args, emits)
     # the flat phases' index, dense cache and host pool are gone: the IVF
     # corpus needs their device and host memory
     gc.collect()
@@ -2829,7 +3283,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         train, train_paths = train_phase(torch, np, args)
         train_s = time.perf_counter() - t0
-    paths += text_paths + attack_paths + lm_paths + train_paths
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Peaks(torch) as pk_mesh:
+        t0 = time.perf_counter()
+        mesh, mesh_paths = mesh_phase(torch, np, args, first)
+        mesh_s = time.perf_counter() - t0
+    paths += text_paths + attack_paths + lm_paths + train_paths + mesh_paths
     score_row = next(k for k in kernels if k["name"] == "score_topk")
     score_row["at_shapes"] += text_rows + attack_rows
     launch_tally(kernels, paths)
@@ -2847,6 +3307,8 @@ def main(argv=None) -> int:
     emit({"phase": "lm", "phase_s": lm_s, "memory": pk_lm.result, **lm})
     emit({"phase": "train", "phase_s": train_s, "memory": pk_train.result,
           **train})
+    emit({"phase": "mesh", "phase_s": mesh_s, "memory": pk_mesh.result,
+          **mesh})
     emit({"phase": "summary", "build_s": build_s,
           "host_max_rss_gb": resource.getrusage(
               resource.RUSAGE_SELF).ru_maxrss / 1e6,

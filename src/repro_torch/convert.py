@@ -16,6 +16,7 @@ import torch
 from repro_torch.crypto import paillier as pai
 from repro_torch.crypto import rlwe
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import ShardSpec
 from repro_torch.models.embedder import Embedder
 from repro_torch.models.transformer import Transformer, TransformerConfig
 from repro_torch.retrieval.index import ClusterMap, FlatIndex
@@ -189,6 +190,42 @@ def opt_state(ref_state, cfg: TransformerConfig, *,
         master=flat(master), m=flat(m), v=flat(v))
 
 
-__all__ = ["cluster_map", "flat_index", "candidate_cache", "sharded_candidate_cache",
-           "secret_key", "paillier_public_key", "paillier_secret_key",
+def shard_spec(partition_spec) -> ShardSpec:
+    """A `ShardSpec` from one reference ``PartitionSpec`` (iterated: each
+    entry None, an axis name or a tuple of axis names)."""
+    return ShardSpec.of(*tuple(partition_spec))
+
+
+def param_specs(spec_tree: dict, cfg: TransformerConfig) -> dict:
+    """A reference sharding-spec tree over its parameter tree (``embed``,
+    ``layers`` with a leading stacked-layer entry on every leaf,
+    ``final_norm``, ``unembed``) as {port parameter name: ShardSpec}: the
+    layer entry (None: layers are never split) is dropped and the spec
+    repeated for ``layers.{i}``."""
+    out = {}
+    leaves = {}
+
+    def walk(tree, prefix):
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                walk(leaf, f"{prefix}{name}.")
+            else:
+                leaves[prefix + name] = tuple(leaf)
+
+    walk(spec_tree, "")
+    for name, entries in leaves.items():
+        if name.startswith("layers."):
+            if not entries or entries[0] is not None:
+                raise ValueError(f"{name}: {entries} splits the layer axis")
+            rest = name[len("layers."):]
+            for i in range(cfg.n_layers):
+                out[f"layers.{i}.{rest}"] = ShardSpec.of(*entries[1:])
+        else:
+            out[name] = ShardSpec.of(*entries)
+    return out
+
+
+__all__ = ["shard_spec", "param_specs", "cluster_map", "flat_index",
+           "candidate_cache", "sharded_candidate_cache", "secret_key",
+           "paillier_public_key", "paillier_secret_key",
            "transformer_params", "embedder", "opt_state"]

@@ -21,6 +21,15 @@ Crypto backend: "rlwe" (default) or "paillier" (paper-faithful).  Both
 parties compute on their device: ``cuda`` unless the caller passes
 ``device="cpu"`` (the cloud computes where its index lives).  The
 perturbation draws from an explicit `torch.Generator` on the user's device.
+
+Over a mesh-built index (``FlatIndex.build(mesh=)``) every rank runs the
+whole round in lockstep, the user side included (RLWE keys and
+encryption from the same numpy seeds on every rank).  Each rank draws its
+own perturbation on its own device; the first stage searches the mesh's
+first rank's perturbed queries, broadcast to every rank
+(`repro_torch.retrieval.topk.make_sharded_topk`), and the re-rank reads
+the candidate cache built from the whole corpus on every rank, so every
+rank returns the same result.
 """
 
 from __future__ import annotations

@@ -11,11 +11,9 @@ Counterpart of ``repro/models/moe.py`` (GShard-style routing):
   * the expert products are plain batched matrix products over the expert
     axis (the reference's einsums, outside any Pallas kernel).
 
-The reference's ``shard_a2a`` implementation (``shard_map`` over a mesh,
-each expert-parallel shard running `_dispatch_compute` on its own experts,
-one psum combine) waits for the multi-device slice (ROADMAP queue 1,
-item 2); with no mesh ``moe_fwd`` runs the einsum formulation, as the
-reference's does.
+``impl="shard_a2a"`` with a mesh runs `moe_fwd_sharded` (the reference's
+``shard_map`` formulation, SPMD: one process per rank); with no mesh
+``moe_fwd`` runs the einsum formulation, as the reference's does.
 """
 
 from __future__ import annotations
@@ -28,6 +26,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.layers import make_param
 
 
@@ -39,12 +38,13 @@ class MoeSpec:
     top_k: int
     capacity_factor: float = 1.25
     ep_pad_to: int = 1         # pad experts to a multiple of this
-    # the reference's activation sharding (the port runs on one device)
+    # token and expert sharding of impl="shard_a2a" (the einsum path runs
+    # on one device and ignores them)
     batch_axes: Optional[tuple] = None
     ep_axis: Optional[str] = None
-    # "einsum" | "shard_a2a" (needs a mesh: not ported yet)
+    # "einsum" | "shard_a2a" (over ``mesh``: see moe_fwd_sharded)
     impl: str = "einsum"
-    mesh: Optional[object] = None
+    mesh: Optional[object] = None   # repro_torch.launch.mesh.make_mesh
 
     @property
     def padded_experts(self) -> int:
@@ -80,9 +80,7 @@ class Moe(nn.Module):
 
 def moe_fwd(p: Moe, x: torch.Tensor, spec: MoeSpec) -> tuple:
     if spec.impl == "shard_a2a" and spec.mesh is not None:
-        raise NotImplementedError(
-            "moe impl 'shard_a2a' over a mesh waits for the multi-device "
-            "slice (ROADMAP queue 1, item 2)")
+        return moe_fwd_sharded(p, x, spec)
     return moe_fwd_einsum(p, x, spec)
 
 
@@ -99,21 +97,72 @@ def route(p: Moe, x: torch.Tensor, spec: MoeSpec) -> tuple:
     return logits, top.values, top.indices
 
 
-def moe_fwd_einsum(p: Moe, x: torch.Tensor, spec: MoeSpec) -> tuple:
-    """x: (B, S, d) -> ((B, S, d), aux loss).  Each batch row is a group."""
-    e = spec.padded_experts
+def _gates(p: Moe, x: torch.Tensor, spec: MoeSpec) -> tuple:
+    """(gate weights (B, S, K) in x's type, expert ids (B, S, K), aux
+    loss over this batch)."""
     logits, values, ids = route(p, x, spec)
-    gate_i = ids[..., :spec.top_k]                              # (B, S, K)
+    gate_i = ids[..., :spec.top_k]
     gate_w = torch.softmax(values[..., :spec.top_k], dim=-1).to(x.dtype)
-
     # load-balancing loss: the mean runs over the padded expert axis
     probs = torch.softmax(logits, dim=-1)
-    onehot1 = F.one_hot(gate_i[..., 0], e).float()
+    onehot1 = F.one_hot(gate_i[..., 0], spec.padded_experts).float()
     aux = spec.n_experts * torch.mean(onehot1.mean(dim=1) * probs.mean(dim=1))
+    return gate_w, gate_i, aux
 
-    out = _dispatch_compute(p, x, gate_w, gate_i, 0, e,
+
+def moe_fwd_einsum(p: Moe, x: torch.Tensor, spec: MoeSpec) -> tuple:
+    """x: (B, S, d) -> ((B, S, d), aux loss).  Each batch row is a group."""
+    gate_w, gate_i, aux = _gates(p, x, spec)
+    out = _dispatch_compute(p, x, gate_w, gate_i, 0, spec.padded_experts,
                             spec.capacity(x.shape[1]), spec)
     return out, aux
+
+
+def moe_fwd_sharded(p: Moe, x: torch.Tensor, spec: MoeSpec) -> tuple:
+    """Expert-parallel MoE over ``spec.mesh``, run by every rank in
+    lockstep: ``x`` is this rank's (B_loc, S, d) tokens (batch split over
+    ``spec.batch_axes``, the same on every rank along ``spec.ep_axis``),
+    and ``p`` holds the whole router and this rank's ``E_pad / n_ep``
+    experts (`repro_torch.models.transformer.shard_params`).
+
+    Every rank routes its tokens (the router is replicated), runs
+    `_dispatch_compute` on the (token, k) pairs routed to its own experts
+    (dispatch costs no communication), and one all-reduce over the EP axis
+    combines the partial outputs.  The aux loss is the global batch's: the
+    mean of the ranks' batch means over the batch axes.
+
+    Gradients: the combine is `mesh_lib.all_reduce_fwd` (sum forward,
+    identity backward: the output's cotangent is already the same on every
+    EP rank, and ``torch.distributed.nn``'s all-reduce would sum it again,
+    n_ep times the true gradient); the tokens and gate weights enter the
+    rank's experts through `mesh_lib.all_reduce_bwd` (identity forward,
+    sum backward: each rank's experts give only their part of those
+    gradients).  Every EP rank then holds the whole gradient of ``x`` and
+    of the router, and its experts' own; the weights' gradients of the
+    global loss are their sums over the batch axes.  The aux loss reduces
+    with `mesh_lib.all_reduce_fwd` too, for the same reason."""
+    mesh, ep = spec.mesh, spec.ep_axis
+    if ep is None:
+        raise ValueError("shard_a2a needs an ep_axis")
+    ba = tuple(spec.batch_axes or ())
+    e = spec.padded_experts
+    n_ep = mesh_lib.axes_size(mesh, (ep,))
+    if e % n_ep:
+        raise ValueError(f"{e} experts do not split over {n_ep} EP ranks")
+    e_loc = e // n_ep
+    if p.w_gate.shape[0] != e_loc:
+        raise ValueError(f"the layer holds {p.w_gate.shape[0]} experts; an "
+                         f"EP rank holds {e_loc} (shard_params)")
+    gate_w, gate_i, aux = _gates(p, x, spec)
+    if ba:
+        aux = mesh_lib.all_reduce_fwd(aux, mesh, ba) / \
+            mesh_lib.axes_size(mesh, ba)
+    e_lo = mesh_lib.axes_position(mesh, (ep,)) * e_loc
+    part = _dispatch_compute(p, mesh_lib.all_reduce_bwd(x, mesh, (ep,)),
+                             mesh_lib.all_reduce_bwd(gate_w, mesh, (ep,)),
+                             gate_i, e_lo, e_loc, spec.capacity(x.shape[1]),
+                             spec)
+    return mesh_lib.all_reduce_fwd(part, mesh, (ep,)), aux
 
 
 def _dispatch_compute(p, x: torch.Tensor, gate_w: torch.Tensor,
@@ -174,4 +223,5 @@ def _dispatch_compute(p, x: torch.Tensor, gate_w: torch.Tensor,
     return unsorted.reshape(b, s, k, d).sum(dim=2)
 
 
-__all__ = ["MoeSpec", "Moe", "moe_fwd", "moe_fwd_einsum", "route"]
+__all__ = ["MoeSpec", "Moe", "moe_fwd", "moe_fwd_einsum", "moe_fwd_sharded",
+           "route"]

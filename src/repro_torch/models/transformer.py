@@ -28,9 +28,20 @@ recording, `hidden` checkpoints each `Block`
 scanned layer): a layer's activations are recomputed in the backward
 pass instead of kept.
 
-Left for later (ROADMAP queue 1, item 2): the multi-device items
-(``param_specs``, ``decode_param_specs``, ``fsdp_param_specs``,
-``cache_specs``, ``abstract_params``, ``pipeline_forward``).
+Multi-device items: ``param_specs`` (2D FSDP x TP), ``decode_param_specs``,
+``fsdp_param_specs`` and ``cache_specs`` are the reference's sharding
+specs as maps from the port's parameter names (cache keys) to
+`repro_torch.launch.mesh.ShardSpec`s, the reference's leading stacked-layer
+entry dropped from the parameters' (one module per layer; the KV cache
+keeps its layer axis); `expert_parallel_specs` is the layout of the
+``shard_a2a`` MoE path (experts over the EP axis, everything else
+replicated); `shard_params` gives each rank its slices of a model, and
+`abstract_params` the reference's shapes and dtypes as ``meta`` tensors.
+A config with ``moe_impl="shard_a2a"`` and a ``mesh`` runs its MoE layers
+through `repro_torch.models.moe.moe_fwd_sharded`: each rank feeds its batch
+shard and holds its experts (`shard_params` with `expert_parallel_specs`).
+Sharded compute over the other layouts (the lowered cells) and
+``pipeline_forward`` are still to port.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ from torch import nn
 from torch.utils import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import ShardSpec, local_slice
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import AttentionSpec
@@ -76,7 +88,7 @@ class TransformerConfig:
     remat: bool = True
     kv_chunk: int = 1024
     scan_unroll: int = 1
-    # activation sharding (the reference's; the port runs on one device)
+    # sharding: batch and TP/EP axes of the mesh (the MoE's shard_a2a path)
     batch_axes: Optional[tuple] = None
     tp_axis: Optional[str] = "model"
     moe_impl: str = "einsum"
@@ -285,4 +297,171 @@ class Transformer(nn.Module):
         return logits, {"k": cache["k"], "v": cache["v"], "len": n + s}
 
 
-__all__ = ["TransformerConfig", "Block", "Transformer"]
+# ---------------------------------------------------------------------------
+# shapes and sharding specs
+# ---------------------------------------------------------------------------
+
+def _layer_shapes(cfg: TransformerConfig) -> dict:
+    """One layer's parameter shapes under the port's names (the reference's
+    ``_layer_params`` tree without the stacked-layer axis)."""
+    spec = cfg.attn_spec
+    d, dh = cfg.d_model, spec.d_head
+    hq, hkv = spec.padded_heads * dh, spec.padded_kv_heads * dh
+    out = {"attn_norm": (d,), "mlp_norm": (d,), "attn.wq": (d, hq),
+           "attn.wk": (d, hkv), "attn.wv": (d, hkv), "attn.wo": (hq, d)}
+    if cfg.qkv_bias:
+        out.update({"attn.bq": (hq,), "attn.bk": (hkv,), "attn.bv": (hkv,)})
+    if cfg.qk_norm:
+        out.update({"attn.q_norm": (dh,), "attn.k_norm": (dh,)})
+    if cfg.is_moe:
+        e, f = cfg.moe_spec.padded_experts, cfg.moe_spec.d_ff
+        out.update({"moe.router": (d, e), "moe.w_gate": (e, d, f),
+                    "moe.w_up": (e, d, f), "moe.w_down": (e, f, d)})
+    else:
+        out.update({"mlp.w_gate": (d, cfg.d_ff), "mlp.w_up": (d, cfg.d_ff),
+                    "mlp.w_down": (cfg.d_ff, d)})
+    return out
+
+
+def abstract_params(cfg: TransformerConfig) -> dict:
+    """{parameter name: ``meta`` tensor} with the reference's shapes (per
+    layer) and the config's dtype, in a `Transformer`'s state-dict order;
+    allocates nothing."""
+    meta = lambda shape: torch.empty(shape, dtype=cfg.torch_dtype,
+                                     device="meta")
+    out = {"embed": meta((cfg.padded_vocab, cfg.d_model)),
+           "final_norm": meta((cfg.d_model,)),
+           "unembed": meta((cfg.d_model, cfg.padded_vocab))}
+    for i in range(cfg.n_layers):
+        out.update({f"layers.{i}.{k}": meta(v)
+                    for k, v in _layer_shapes(cfg).items()})
+    return out
+
+
+def _spec_map(cfg: TransformerConfig, top: dict, layer: dict) -> dict:
+    """Name -> ShardSpec from the top-level specs and one layer's (its
+    entries without the stacked-layer axis), in `abstract_params`' order."""
+    out = dict(top)
+    for i in range(cfg.n_layers):
+        out.update({f"layers.{i}.{k}": ShardSpec.of(*layer[k])
+                    for k in _layer_shapes(cfg)})
+    return out
+
+
+def _attn_extras(cfg: TransformerConfig, bias, norm) -> dict:
+    out = {}
+    if cfg.qkv_bias:
+        out.update({"attn.bq": bias[0], "attn.bk": bias[1],
+                    "attn.bv": bias[2]})
+    if cfg.qk_norm:
+        out.update({"attn.q_norm": norm, "attn.k_norm": norm})
+    return out
+
+
+_S = ShardSpec.of
+
+
+def param_specs(cfg: TransformerConfig, *, fsdp_axis="data",
+                tp_axis="model") -> dict:
+    """Training layout, 2D FSDP x TP (the reference's ``param_specs``):
+    projections split on their input over ``fsdp_axis`` and their output
+    over ``tp_axis`` (``wo`` the other way), experts over ``tp_axis``."""
+    f, m = fsdp_axis, tp_axis
+    layer = {"attn_norm": (None,), "mlp_norm": (None,),
+             "attn.wq": (f, m), "attn.wk": (f, m), "attn.wv": (f, m),
+             "attn.wo": (m, f),
+             **_attn_extras(cfg, ((m,), (m,), (m,)), (None,))}
+    if cfg.is_moe:
+        layer.update({"moe.router": (None, None), "moe.w_gate": (m, f, None),
+                      "moe.w_up": (m, f, None), "moe.w_down": (m, None, f)})
+    else:
+        layer.update({"mlp.w_gate": (f, m), "mlp.w_up": (f, m),
+                      "mlp.w_down": (m, f)})
+    return _spec_map(cfg, {"embed": _S(m, f), "final_norm": _S(None),
+                           "unembed": _S(f, m)}, layer)
+
+
+def decode_param_specs(cfg: TransformerConfig, *, tp_axis="model") -> dict:
+    """Serving layout (the reference's ``decode_param_specs``): every
+    projection split on its input (contraction) dimension over
+    ``tp_axis``; experts whole, each expert matrix split on its input."""
+    m = tp_axis
+    layer = {"attn_norm": (None,), "mlp_norm": (None,),
+             "attn.wq": (m, None), "attn.wk": (m, None),
+             "attn.wv": (m, None), "attn.wo": (m, None),
+             **_attn_extras(cfg, ((None,),) * 3, (None,))}
+    if cfg.is_moe:
+        layer.update({"moe.router": (None, None),
+                      "moe.w_gate": (None, m, None),
+                      "moe.w_up": (None, m, None),
+                      "moe.w_down": (None, m, None)})
+    else:
+        layer.update({"mlp.w_gate": (m, None), "mlp.w_up": (m, None),
+                      "mlp.w_down": (m, None)})
+    return _spec_map(cfg, {"embed": _S(None, m), "final_norm": _S(None),
+                           "unembed": _S(m, None)}, layer)
+
+
+def fsdp_param_specs(cfg: TransformerConfig, axes=("data", "model")) -> dict:
+    """Pure FSDP (the reference's ``fsdp_param_specs``): every weight
+    split over all of ``axes`` on one dimension, no tensor parallelism."""
+    fs = tuple(axes)
+    layer = {"attn_norm": (None,), "mlp_norm": (None,),
+             "attn.wq": (fs, None), "attn.wk": (fs, None),
+             "attn.wv": (fs, None), "attn.wo": (fs, None),
+             **_attn_extras(cfg, ((None,),) * 3, (None,))}
+    if cfg.is_moe:
+        layer.update({"moe.router": (fs, None), "moe.w_gate": (None, fs, None),
+                      "moe.w_up": (None, fs, None),
+                      "moe.w_down": (None, None, fs)})
+    else:
+        layer.update({"mlp.w_gate": (fs, None), "mlp.w_up": (fs, None),
+                      "mlp.w_down": (None, fs)})
+    return _spec_map(cfg, {"embed": _S(fs, None), "final_norm": _S(None),
+                           "unembed": _S(fs, None)}, layer)
+
+
+def expert_parallel_specs(cfg: TransformerConfig, *,
+                          ep_axis="model") -> dict:
+    """The ``shard_a2a`` MoE path's layout (the reference's
+    ``moe_fwd_sharded`` in-specs): the expert weights split on the expert
+    axis over ``ep_axis``, every other weight (the router too) whole."""
+    out = {}
+    for name, shape in abstract_params(cfg).items():
+        expert = name.rsplit(".", 1)[-1] in ("w_gate", "w_up", "w_down") \
+            and ".moe." in name
+        out[name] = _S(ep_axis) if expert else _S(*([None] * shape.dim()))
+    return out
+
+
+def cache_specs(cfg: TransformerConfig, *, batch_axes=("data",),
+                tp_axis="model") -> dict:
+    """KV cache layout (the reference's ``cache_specs``): batch over
+    ``batch_axes``, head_dim over ``tp_axis``; the port's cache keeps the
+    reference's (n_layers, B, max_len, kv_heads, d_head) layout."""
+    kv = _S(None, batch_axes, None, None, tp_axis)
+    return {"k": kv, "v": kv, "len": _S()}
+
+
+def shard_params(model: nn.Module, mesh, specs: dict) -> nn.Module:
+    """Replace every parameter of ``model`` by this rank's slice of it
+    under ``specs`` (name -> ShardSpec covering every parameter), in
+    place; returns ``model``."""
+    names = dict(model.named_parameters())
+    if set(names) != set(specs):
+        raise ValueError(f"specs and parameters differ: "
+                         f"{sorted(set(names) ^ set(specs))[:4]}")
+    for name, param in names.items():
+        owner, leaf = model, name
+        if "." in name:
+            path, leaf = name.rsplit(".", 1)
+            owner = model.get_submodule(path)
+        local = local_slice(param.detach(), mesh, specs[name])
+        setattr(owner, leaf, nn.Parameter(local,
+                                          requires_grad=param.requires_grad))
+    return model
+
+
+__all__ = ["TransformerConfig", "Block", "Transformer", "abstract_params",
+           "param_specs", "decode_param_specs", "fsdp_param_specs",
+           "expert_parallel_specs", "cache_specs", "shard_params"]

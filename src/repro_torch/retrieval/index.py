@@ -1,10 +1,10 @@
-"""Single-device corpus index with an epoch-versioned corpus core (PyTorch).
+"""Corpus index with an epoch-versioned corpus core (PyTorch).
 
-Counterpart of ``repro/retrieval/index.py`` without the mesh: `FlatIndex`
-with ``build``, ``rows``, ``fetch_documents``, `IndexSlice` row-range
-views (`plan_row_slices`), the NTT-domain ``candidate_cache`` (dense, or
-the corpus-scale sharded cache under a `CandidateCacheConfig`), and the
-dynamic corpus:
+Counterpart of ``repro/retrieval/index.py``: `FlatIndex` with ``build``,
+``rows``, ``fetch_documents``, `IndexSlice` row-range views
+(`plan_row_slices`), the NTT-domain ``candidate_cache`` (dense, or the
+corpus-scale sharded cache under a `CandidateCacheConfig`), the dynamic
+corpus and the mesh-sharded index:
 
   * `FlatIndex.ingest` appends documents under a monotonically increasing
     epoch; every reader pins a `CorpusView` (an immutable (epoch, rows)
@@ -17,9 +17,21 @@ dynamic corpus:
     ``align``.  The k-means and the routing stay in host numpy, copied
     from the reference: they are build-time metadata, and numpy keeps the
     permutation and the map bit-identical to the reference's.
+  * ``FlatIndex.build(..., mesh=, row_axes=)`` pads the rows with zeros to
+    a multiple of the shard count over ``row_axes`` (``num_rows`` counts
+    the padding, as in the reference) and keeps on each rank only its
+    contiguous row block, the one at its linearized position over
+    ``row_axes``; ranks that differ only in other axes hold the same block.
+    ``rows``, ``slice_view`` and ``candidate_cache`` read the whole corpus,
+    gathered once from the blocks (collective: every rank calls them in
+    lockstep), as the reference's global array gives it.  A sharded cache
+    keeps its pinned shards whole on each rank: the reference's row-sharded
+    pinned placement (``_shard_sharding``) is still to port.  A mesh index
+    takes no ``ivf=`` and no ``ingest``, as in the reference.
 
 Embeddings live on the index's device (``cuda`` unless the caller asks for
-``cpu``); documents stay on the host.
+``cpu``; a mesh index on its mesh's device); documents stay on the host,
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,23 +215,29 @@ class CorpusView:
     live corpus has grown."""
 
     epoch: int
-    embeddings: torch.Tensor       # (num_rows_at_epoch, n)
+    embeddings: torch.Tensor       # (num_rows_at_epoch, n); a mesh: the block
     cluster_map: Optional[ClusterMap] = None
+    mesh: Optional[object] = None
+    row_axes: Optional[tuple] = None
     # per-cluster IndexSlice memo: identity state, not value state
     _slices: dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)
 
     @property
     def num_rows(self) -> int:
-        return self.embeddings.shape[0]
+        return _num_rows(self.embeddings, self.mesh, self.row_axes)
 
     @property
     def dim(self) -> int:
         return self.embeddings.shape[1]
 
     def slice_view(self, start: int, stop: int) -> IndexSlice:
-        """A contiguous row-range view of this snapshot."""
-        return _slice(self.embeddings, start, stop, "view")
+        """A contiguous row-range view of this snapshot (a mesh view
+        gathers its rows: collective)."""
+        if self.mesh is None:
+            return _slice(self.embeddings, start, stop, "view")
+        return _slice(_gather_rows(self.embeddings, self.mesh, self.row_axes),
+                      start, stop, "view")
 
     def cluster_slice(self, c: int) -> IndexSlice:
         """The `IndexSlice` cluster ``c`` owns (memoized: repeated routed
@@ -233,6 +252,17 @@ class CorpusView:
         return sl
 
 
+def _num_rows(emb: torch.Tensor, mesh, row_axes) -> int:
+    if mesh is None:
+        return emb.shape[0]
+    return emb.shape[0] * mesh_lib.axes_size(mesh, row_axes)
+
+
+def _gather_rows(emb: torch.Tensor, mesh, row_axes) -> torch.Tensor:
+    """Every rank's row block, in global row order (collective)."""
+    return mesh_lib.all_gather(emb, mesh, row_axes).reshape(-1, emb.shape[1])
+
+
 def _slice(emb: torch.Tensor, start: int, stop: int, what: str) -> IndexSlice:
     if not (0 <= start < stop <= emb.shape[0]):
         raise ValueError(f"slice [{start}, {stop}) out of range for "
@@ -242,11 +272,14 @@ def _slice(emb: torch.Tensor, start: int, stop: int, what: str) -> IndexSlice:
 
 @dataclasses.dataclass
 class FlatIndex:
-    """A flat (exact-search) embedding index on one device."""
+    """A flat (exact-search) embedding index on one device, or row-sharded
+    over a mesh (``embeddings`` then holds this rank's block)."""
 
-    embeddings: torch.Tensor       # (N, n) float32 unit rows
+    embeddings: torch.Tensor       # (N, n) float32 unit rows; a mesh: block
     documents: Optional[Sequence[bytes]] = None
     cluster_map: Optional[ClusterMap] = None   # IVF layout (build(ivf=...))
+    mesh: Optional[object] = None              # launch.mesh.make_mesh
+    row_axes: Optional[tuple] = None
     # NTT-domain candidate caches, memoized per (RlweParams value, config)
     # so every RemoteRagCloud over this index shares one build
     _cand_caches: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -258,14 +291,18 @@ class FlatIndex:
                                           compare=False)
     _lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
+    # a mesh index's whole corpus, gathered on first use
+    _rows: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def __post_init__(self):
         if self._epoch_rows is None:
-            self._epoch_rows = [self.embeddings.shape[0]]
+            self._epoch_rows = [self.num_rows]
 
     @property
     def num_rows(self) -> int:
-        return self.embeddings.shape[0]
+        """Rows of the whole corpus (a mesh index: with its padding)."""
+        return _num_rows(self.embeddings, self.mesh, self.row_axes)
 
     @property
     def dim(self) -> int:
@@ -290,6 +327,9 @@ class FlatIndex:
                     f"epoch {e} out of range [0, {self._epoch}]")
             rows = self._epoch_rows[e]
             cm = self.cluster_map
+            if self.mesh is not None:       # one epoch: the whole block
+                return CorpusView(epoch=e, embeddings=self.embeddings,
+                                  mesh=self.mesh, row_axes=self.row_axes)
             return CorpusView(
                 epoch=e, embeddings=self.embeddings[:rows],
                 cluster_map=None if cm is None else cm.trimmed(rows))
@@ -299,27 +339,50 @@ class FlatIndex:
               documents: Optional[Sequence[bytes]] = None,
               normalize: bool = True,
               ivf: Optional[IvfConfig] = None,
-              device: DeviceLike = None) -> "FlatIndex":
+              device: DeviceLike = None, mesh=None,
+              row_axes: Optional[tuple] = None) -> "FlatIndex":
         """Normalize on the host exactly as the reference does (float32
         numpy), cluster and permute the rows with ``ivf``, then place them
-        on ``device``."""
-        dev = resolve_device(device)
+        on ``device``.  With ``mesh`` (`repro_torch.launch.mesh.make_mesh`)
+        the rows are zero-padded to a multiple of the shard count over
+        ``row_axes`` (default: every axis) and this rank keeps its block on
+        the mesh's device (``device`` must be None or that device)."""
+        if mesh is not None:
+            dev = mesh.repro_comms.device
+            if device is not None and resolve_device(device) != dev:
+                raise ValueError(f"the mesh computes on {dev}, not {device}")
+        else:
+            dev = resolve_device(device)
         emb = np.asarray(embeddings, np.float32)
         if normalize:
             emb = emb / np.linalg.norm(emb, axis=-1, keepdims=True)
         cluster_map = None
         if ivf is not None:
+            if mesh is not None:
+                raise ValueError("ivf clustering over a mesh-sharded index "
+                                 "is not supported")
             perm, cluster_map = _kmeans_cluster_map(emb, ivf)
             emb = emb[perm]
             if documents is not None:
                 documents = [documents[int(i)] for i in perm]
+        if mesh is not None:
+            row_axes = tuple(row_axes or mesh_lib.row_axes(mesh))
+            n_shards = mesh_lib.axes_size(mesh, row_axes)
+            pad = (-emb.shape[0]) % n_shards
+            if pad:
+                emb = np.concatenate([emb, np.zeros((pad, emb.shape[1]),
+                                                    np.float32)])
+            local = emb.shape[0] // n_shards
+            start = mesh_lib.axes_position(mesh, row_axes) * local
+            emb = emb[start:start + local]
         emb = np.ascontiguousarray(emb)
         if not emb.flags.writeable:       # e.g. a view of a JAX array
             emb = emb.copy()
         arr = torch.from_numpy(emb).to(dev)
         return cls(embeddings=arr,
                    documents=list(documents) if documents is not None else None,
-                   cluster_map=cluster_map)
+                   cluster_map=cluster_map, mesh=mesh,
+                   row_axes=row_axes if mesh is not None else None)
 
     def ingest(self, embeddings: np.ndarray,
                documents: Optional[Sequence[bytes]] = None, *,
@@ -337,6 +400,9 @@ class FlatIndex:
         views of earlier epochs keep theirs."""
         from repro_torch.crypto import rlwe
 
+        if self.mesh is not None:
+            raise ValueError("streaming ingestion requires an unsharded "
+                             "index (mesh=None)")
         emb = np.asarray(embeddings, np.float32)
         if emb.ndim != 2 or emb.shape[1] != self.dim:
             raise ValueError(
@@ -381,17 +447,28 @@ class FlatIndex:
         assert self.documents is not None, "index built without documents"
         return [self.documents[int(i)] for i in ids]
 
+    def all_rows(self) -> torch.Tensor:
+        """The whole corpus (num_rows, n) on this index's device: a mesh
+        index gathers its blocks on the first call (collective) and keeps
+        them."""
+        if self.mesh is None:
+            return self.embeddings
+        if self._rows is None:
+            self._rows = _gather_rows(self.embeddings, self.mesh,
+                                      self.row_axes)
+        return self._rows
+
     def rows(self, ids) -> torch.Tensor:
         """Gather embedding rows by global id."""
         if not isinstance(ids, torch.Tensor):
             ids = torch.as_tensor(np.asarray(ids))
         ids = ids.to(device=self.device, dtype=torch.int64)
-        return self.embeddings.index_select(0, ids.reshape(-1)).reshape(
+        return self.all_rows().index_select(0, ids.reshape(-1)).reshape(
             tuple(ids.shape) + (self.dim,))
 
     def slice_view(self, start: int, stop: int) -> IndexSlice:
         """A contiguous row-range view ``[start, stop)`` of this index."""
-        return _slice(self.embeddings, start, stop, "index")
+        return _slice(self.all_rows(), start, stop, "index")
 
     def candidate_cache(self, rlwe_params, config=None):
         """NTT-domain candidate cache for this index under ``rlwe_params``
@@ -403,7 +480,8 @@ class FlatIndex:
         `ShardedCandidateCache` (host pool, hot shards on the device).  The
         packed pool depends only on the params value: an existing cache for
         the same params donates it, so a new config is a re-view, never a
-        re-pack."""
+        re-pack.  A mesh index builds either from the whole corpus on every
+        rank, as the reference's does."""
         from repro_torch.crypto import rlwe
 
         pk = rlwe.params_key(rlwe_params)
@@ -416,12 +494,12 @@ class FlatIndex:
                 cache = (rlwe.densify_candidate_cache(donor)
                          if donor is not None else
                          rlwe.build_candidate_cache(rlwe_params,
-                                                    self.embeddings))
+                                                    self.all_rows()))
             else:
                 cache = (rlwe.shard_candidate_cache(donor, config)
                          if donor is not None else
                          rlwe.build_sharded_candidate_cache(
-                             rlwe_params, self.embeddings, config=config))
+                             rlwe_params, self.all_rows(), config=config))
             self._cand_caches[key] = cache
         return cache
 

@@ -1,14 +1,15 @@
-"""Exact and IVF-routed top-k' search over a single-device corpus (PyTorch).
+"""Exact and IVF-routed top-k' search over a corpus (PyTorch).
 
-Counterpart of ``repro/retrieval/topk.py``: `distributed_topk` (its
-mesh=None branch, over a `FlatIndex` or a pinned `CorpusView`),
-`slice_topk` over an `IndexSlice`, the IVF first stage (`cluster_topk`,
-`plan_nprobe`), `search_view` (the serve layer's first-stage search) and
-`distances_from_scores`.  The fused score + select kernel reduces each
-scanned row range to per-tile candidates; the small merges run outside.
-A score's bits depend on its (query, row) pair alone, in the kernel and
-in its plain version, so per-slice and per-cluster scans merged by (score
-desc, global id asc) equal the flat scan bit for bit.
+Counterpart of ``repro/retrieval/topk.py``: `distributed_topk` over a
+`FlatIndex` or a pinned `CorpusView`, on one device or row-sharded over a
+mesh (`make_sharded_topk`), `slice_topk` over an `IndexSlice`, the IVF
+first stage (`cluster_topk`, `plan_nprobe`), `search_view` (the serve
+layer's first-stage search) and `distances_from_scores`.  The fused score
++ select kernel reduces each scanned row range to per-tile candidates; the
+small merges run outside.  A score's bits depend on its (query, row) pair
+alone, in the kernel and in its plain version, so per-slice, per-cluster
+and per-shard scans merged by (score desc, global id asc) equal the flat
+scan bit for bit.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.scoretopk import ops as sops
+from repro_torch.kernels.scoretopk import ref as sref
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.retrieval.index import IndexSlice
 
 
@@ -33,10 +36,61 @@ def _queries(index_emb: torch.Tensor, queries) -> torch.Tensor:
                            device=index_emb.device)
 
 
+def make_sharded_topk(mesh, axes, n_rows: int, k: int, *, tile: int = 2048,
+                      per_tile_k: Optional[int] = None):
+    """``search(queries, shard) -> SearchResult`` over a corpus of
+    ``n_rows`` rows split into contiguous blocks over ``axes`` of ``mesh``
+    (`repro_torch.launch.mesh.make_mesh`); ``shard`` is this rank's block.
+    Every rank of the mesh calls it in lockstep.
+
+    The queries searched are those of the mesh's first rank, broadcast to
+    every rank (a replicated input, as the reference's ``P()`` in-spec).
+    Each rank reduces its block with the score-top-k kernel (on a CUDA
+    block; the plain version on a CPU one) to ``k_local = min(k,
+    rows_local)`` candidates per query, offsets their ids by ``position *
+    rows_local``, and one all-gather over ``axes`` brings every rank's
+    values, ids and exactness flag, in position order; the merge keeps
+    (score desc, global id asc).  ``exact`` is the AND over the ranks.
+    Ranks along axes outside ``axes`` hold the same blocks and run the same
+    search."""
+    axes = tuple(axes)
+    n_shards = mesh_lib.axes_size(mesh, axes)
+    if n_rows % n_shards:
+        raise ValueError(f"{n_rows} rows do not split over {n_shards} shards")
+    rows_local = n_rows // n_shards
+    k_local = min(k, rows_local)
+    k_out = min(k, n_shards * k_local)
+
+    def search(queries, shard: torch.Tensor) -> SearchResult:
+        if shard.shape[0] != rows_local:
+            raise ValueError(f"shard holds {shard.shape[0]} rows, the mesh "
+                             f"gives each {rows_local}")
+        q = mesh_lib.broadcast(_queries(shard, queries), mesh)
+        out = sops.topk_scores(q, shard, k_local, tile=min(tile, rows_local),
+                               per_tile_k=per_tile_k)
+        gidx = out.indices + mesh_lib.axes_position(mesh, axes) * rows_local
+        # one collective: values, ids (int32 bits) and the flag side by side
+        flag = q.new_full((q.shape[0], 1), float(out.exact))
+        packed = torch.cat([out.values, gidx.view(torch.float32), flag], 1)
+        every = mesh_lib.all_gather(packed, mesh, axes)   # (n_shards, B, .)
+        vals = every[..., :k_local].contiguous()
+        ids = every[..., k_local:2 * k_local].contiguous().view(torch.int32)
+        mv, mi = sref.merge_tiles_ref(vals, ids, k_out)
+        return SearchResult(mv, mi, bool(torch.all(every[..., -1] > 0)))
+
+    return search
+
+
 def distributed_topk(index, queries, k: int, *, tile: int = 2048,
                      per_tile_k: Optional[int] = None) -> SearchResult:
     """Exact top-k of <query, corpus row> over a `FlatIndex` or a
-    `CorpusView` (one device)."""
+    `CorpusView`: on one device, or over the mesh a mesh-built index is
+    sharded on (`make_sharded_topk`; ``num_rows`` counts the padding, as
+    in the reference)."""
+    if getattr(index, "mesh", None) is not None:
+        search = make_sharded_topk(index.mesh, index.row_axes, index.num_rows,
+                                   k, tile=tile, per_tile_k=per_tile_k)
+        return search(queries, index.embeddings)
     out = sops.topk_scores(_queries(index.embeddings, queries),
                            index.embeddings, k, tile=tile,
                            per_tile_k=per_tile_k)
@@ -136,5 +190,6 @@ def distances_from_scores(values):
     return 1.0 - values
 
 
-__all__ = ["SearchResult", "distributed_topk", "slice_topk", "plan_nprobe",
-           "cluster_topk", "search_view", "distances_from_scores"]
+__all__ = ["SearchResult", "make_sharded_topk", "distributed_topk",
+           "slice_topk", "plan_nprobe", "cluster_topk", "search_view",
+           "distances_from_scores"]

@@ -6,7 +6,9 @@ to the unbatched call:
 
   * perturb_batch       lane b is perturb(generators[b], E[b], epss[b])
   * topk_batch          one score-top-k' kernel launch with B queries over
-                        a `FlatIndex` or a pinned `CorpusView`
+                        a `FlatIndex` or a pinned `CorpusView` (over a
+                        mesh index: one launch per rank on its block and
+                        one all-gather, every rank in lockstep)
   * encrypted_scores_cached_batch / decrypt_scores_batch
                         the RLWE cloud/user crypto with a leading batch
                         axis (re-exported from `repro_torch.crypto.rlwe`)

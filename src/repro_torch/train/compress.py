@@ -8,8 +8,8 @@ is added back before the next step's compression.
 
 Counterpart of ``repro/train/compress.py``: per-tensor codes equal the
 reference's bit for bit (``torch.round`` and ``jnp.round`` both round half
-to even).  Left for later (ROADMAP queue 1, item 2):
-``make_compressed_psum``, the int8 all-reduce over a mesh.
+to even), and so does `make_compressed_psum`, the int8 all-reduce over
+mesh axes.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from repro_torch.launch import mesh as mesh_lib
 
 
 def quantize_int8(x: torch.Tensor) -> tuple:
@@ -49,5 +51,32 @@ def init_error_state(grads_like: Dict[str, torch.Tensor]) -> dict:
             for k, g in grads_like.items()}
 
 
+def make_compressed_psum(mesh, axes: tuple):
+    """int8-quantized all-reduce of partial gradients over ``axes`` of
+    ``mesh`` (`repro_torch.launch.mesh.make_mesh`): a transform of a dict
+    of this rank's partial gradients into their sums, the same on every
+    rank along ``axes``; every rank calls it in lockstep.
+
+    Per tensor: the ranks share the largest absmax scale (an all-reduce
+    MAX), each quantizes its part to ``clip(round(part / scale), -127,
+    127)``, the codes are summed as int32 (an all-reduce SUM, as the
+    reference's ``psum`` of int32 codes) and the sum is dequantized.  The
+    reference's ``shard_map`` contract (one slice of a stacked leading
+    axis per participant) becomes one rank's own tensor."""
+    axes = tuple(axes)
+
+    def leaf_psum(local: torch.Tensor) -> torch.Tensor:
+        _, s = quantize_int8(local)
+        s_max = mesh_lib.all_reduce(s, mesh, axes, op="max")
+        q = torch.clamp(torch.round(local / s_max), -127, 127)
+        acc = mesh_lib.all_reduce(q.to(torch.int32), mesh, axes)
+        return acc.to(torch.float32) * s_max
+
+    def transform(grads: Dict[str, torch.Tensor]) -> dict:
+        return {k: leaf_psum(g) for k, g in grads.items()}
+
+    return transform
+
+
 __all__ = ["quantize_int8", "dequantize_int8", "compress_decompress",
-           "ef_step", "init_error_state"]
+           "ef_step", "init_error_state", "make_compressed_psum"]

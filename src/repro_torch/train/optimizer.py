@@ -11,8 +11,9 @@ too, on 0-d tensors on the state's device (a Python double would differ
 from the reference's float32 by an ulp, and a device tensor keeps the step
 free of host synchronisation).
 
-Left for later (ROADMAP queue 1, item 2): the mesh items ``abstract_init``
-and ``state_specs``.
+The mesh items: `abstract_init` (the state's shapes as float32 ``meta``
+tensors) and `state_specs` (the state's placements mirror the
+parameters').
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import math
 from typing import Dict, NamedTuple, Optional
 
 import torch
+
+from repro_torch.launch.mesh import ShardSpec
 
 Params = Dict[str, torch.Tensor]
 
@@ -59,6 +62,23 @@ def init(params: Params, cfg: AdamWConfig) -> OptState:
                 for k, p in params.items()},
         m={k: zeros(p) for k, p in params.items()},
         v={k: zeros(p) for k, p in params.items()})
+
+
+def abstract_init(abstract_params: Params, cfg: AdamWConfig) -> OptState:
+    """`init`'s state as ``meta`` tensors (a () int32 step; float32
+    master, m and v of the parameters' shapes); allocates nothing."""
+    del cfg
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    tree = lambda: {k: f32(p) for k, p in abstract_params.items()}
+    return OptState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                    master=tree(), m=tree(), v=tree())
+
+
+def state_specs(param_specs: Dict[str, ShardSpec]) -> OptState:
+    """Placements of the optimizer state: the step replicated, master, m
+    and v as the parameters (``param_specs``: name -> ShardSpec)."""
+    return OptState(step=ShardSpec.of(), master=dict(param_specs),
+                    m=dict(param_specs), v=dict(param_specs))
 
 
 def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
@@ -113,5 +133,5 @@ def apply(grads: Params, state: OptState, cfg: AdamWConfig, *,
         {"grad_norm": gnorm, "lr": lr}
 
 
-__all__ = ["AdamWConfig", "OptState", "init", "schedule", "global_norm",
-           "apply"]
+__all__ = ["AdamWConfig", "OptState", "init", "abstract_init", "state_specs",
+           "schedule", "global_norm", "apply"]

@@ -903,3 +903,63 @@ def test_train_step_card_equals_cpu(cuda, arch):
         w = want[k].detach().double()
         err = torch.linalg.vector_norm(p.detach().cpu().double() - w)
         assert float(err) <= 1e-4 * float(torch.linalg.vector_norm(w)), k
+
+
+@pytest.fixture
+def nccl_world(cuda, tmp_path):
+    """A world of one ``nccl`` rank on the card, torn down after the test."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.init_ranks("nccl", store_path=tmp_path / "store", rank=0,
+                        world_size=1, timeout_s=120)
+    try:
+        yield mesh_lib
+    finally:
+        mesh_lib.shutdown()
+
+
+def test_world1_nccl_mesh_search_equals_flat_kernel_scan(cuda, nccl_world):
+    """A mesh-built index on a world-1 ``nccl`` mesh runs the score-top-k
+    kernel on its block and equals the flat scan bit for bit."""
+    from repro_torch.retrieval.index import FlatIndex
+    from repro_torch.retrieval.topk import distributed_topk
+
+    rng = np.random.default_rng(21)
+    e = rng.normal(size=(20_000, 768)).astype(np.float32)
+    q = torch.from_numpy(rng.normal(size=(8, 768)).astype(np.float32))
+    mesh = nccl_world.make_mesh((1,), ("data",), device=cuda,
+                                backend="nccl")
+    flat = FlatIndex.build(e, device=cuda)
+    sharded = FlatIndex.build(e, mesh=mesh)
+    want = distributed_topk(flat, q.to(cuda), 161)
+    ext.reset_launches()
+    got = distributed_topk(sharded, q.to(cuda), 161)
+    assert ext.launch_counts().get("score_topk", 0) == 1
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(got.indices, want.indices)
+    assert got.exact and sharded.num_rows == 20_000
+
+
+def test_world1_nccl_moe_sharded_equals_einsum(cuda, nccl_world):
+    """``moe_fwd_sharded`` on a world-1 (1, 1) ``nccl`` mesh (every expert
+    on the one EP rank) equals ``moe_fwd_einsum`` bit for bit, output and
+    aux (float32, TF32 off)."""
+    from repro_torch.models import moe as moe_lib
+
+    mesh = nccl_world.make_mesh((1, 1), ("data", "model"), device=cuda,
+                                backend="nccl")
+    kw = dict(d_model=256, d_ff=128, n_experts=16, top_k=4)
+    spec_e = moe_lib.MoeSpec(**kw)
+    spec_s = moe_lib.MoeSpec(**kw, batch_axes=("data",), ep_axis="model",
+                             impl="shard_a2a", mesh=mesh)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    layer = moe_lib.Moe(spec_e, gen, cuda)
+    x = torch.randn((4, 64, 256), generator=gen, device=cuda)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want, want_aux = moe_lib.moe_fwd_einsum(layer, x, spec_e)
+        got, got_aux = moe_lib.moe_fwd(layer, x, spec_s)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.equal(got, want) and torch.equal(got_aux, want_aux)

@@ -26,7 +26,8 @@ for must in ("repro_torch.launch.serve", "repro_torch.serve.engine",
              "repro_torch.data.pipeline", "repro_torch.train.optimizer",
              "repro_torch.train.trainer", "repro_torch.train.checkpoint",
              "repro_torch.train.fault", "repro_torch.train.compress",
-             "repro_torch.launch.train", "repro_torch.examples.train_lm"):
+             "repro_torch.launch.train", "repro_torch.examples.train_lm",
+             "repro_torch.launch.mesh"):
     assert must in names, must
 for name in names:
     importlib.import_module(name)

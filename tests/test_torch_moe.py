@@ -185,7 +185,10 @@ def test_dispatch_over_expert_halves_sums_to_layer(ep_pad_to):
 
 
 def test_shard_a2a_with_a_mesh_raises():
+    """``impl="shard_a2a"`` with a mesh runs `moe_fwd_sharded`, which
+    needs an expert-parallel axis (tests/test_torch_moe_sharded.py runs it
+    over a real mesh)."""
     spec = tm.MoeSpec(**_spec_kw(impl="shard_a2a", mesh=object()))
     mod = tm.Moe(spec, torch.Generator().manual_seed(0), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
+    with pytest.raises(ValueError, match="shard_a2a needs an ep_axis"):
         tm.moe_fwd(mod, torch.from_numpy(_x((1, 4, 32))), spec)
