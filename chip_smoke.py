@@ -18,7 +18,11 @@ counterpart of ``repro/configs/remoterag.py``: 10^6 documents of dimension
      kernel (in bursts of back-to-back calls), plain version and, where one
      exists, the PyTorch library call computing the same function; the NTT
      also at one polynomial, the batch's 8 and one request's 41 rows, the
-     pointwise product at 1 and 41 rows, the fused re-rank at one request,
+     pointwise product at 1, 41 and 328 rows with b full and with b one
+     row broadcast, the key product (every prime in one launch) at one
+     encryption, one request's decryption and the batch's, each beside the
+     three standalone kernels chained (bit for bit and timed), the fused
+     re-rank at one request,
      score-top-k at one query, at the privacy-ignorant baseline's top 5,
      and over the row counts of a router slice, an IVF cluster and the
      ingested tail (``at_shapes``); the fused re-rank reads gathered rows
@@ -158,7 +162,11 @@ prefill and decode, the training parity run, steps and drill, the mesh
 phase's searches, round and MoE layer, on every rank) runs with
 the launch counts set to 0 just before it and read just after, and every
 kernel of the path must have launched (the LM, training and mesh MoE
-paths have none: their counts must stay 0); the kernels line gives each
+paths have none: their counts must stay 0); the RLWE serving paths must
+launch no standalone inverse NTT or pointwise product (the key product
+replaced them there; the privacy-conscious baseline's staged scoring
+still launches both, so every kernel runs on some path); the kernels
+line gives each
 kernel's launches over the paths, by path and by shape, and launches x
 (time - bound) per timed shape.  Every phase prints one JSON line with its
 wall time and its device and host memory peaks; the last line is the
@@ -207,13 +215,16 @@ ROUTER_REPLICAS = 4          # replicas of the router phases
 # IVF + ingest phase: corpus rows, clusters (= cache shards of
 # IVF_SHARD_DOCS docs), documents ingested
 IVF_DOCS, IVF_CLUSTERS, IVF_SHARD_DOCS, INGEST_DOCS = 10**6, 16, 62_500, 50_000
-# kernels of the serving path (fused_rerank is the staged witness only)
-PATH_KERNELS = ("ntt_fwd", "ntt_inv", "pointwise_mul", "fused_rerank_intt",
-                "score_topk")
+# kernels of the serving path: encryption and decryption make one key
+# product each, scoring forward-NTTs the query and runs the fused re-rank;
+# the standalone inverse NTT and pointwise product (the staged scoring of
+# fresh packing) and the staged re-rank (the witness) must not launch there
+PATH_KERNELS = ("ntt_fwd", "key_mul", "fused_rerank_intt", "score_topk")
+OFF_PATH_KERNELS = ("ntt_inv", "pointwise_mul", "fused_rerank")
 # kernels of the Paillier serving path (the first stage) and of the RLWE
 # privacy-conscious baseline (fresh packing: no fused re-rank)
 PAILLIER_KERNELS = ("score_topk",)
-CONSCIOUS_KERNELS = ("ntt_fwd", "ntt_inv", "pointwise_mul")
+CONSCIOUS_KERNELS = ("ntt_fwd", "ntt_inv", "pointwise_mul", "key_mul")
 PAILLIER_BITS, FALLBACK_BITS = 512, 1024   # tenants' keys; the object tier
 CONSCIOUS_ROWS = 512         # rows of the privacy-conscious baselines
 # text phase: the service's text front end at full width (the embedder of
@@ -242,7 +253,7 @@ LM_ATOL = 1e-3      # logits, card against CPU, float32
 LM_LAYERS, LM_PROMPTS, LM_PROMPT_LEN, LM_MAX_LEN, LM_STEPS = \
     8, 8, 512, 1024, 64
 BF16_OPS_S = 989e12   # H100 SXM dense bf16 tensor-core peak (data sheet)
-LM_KERNELS = ()       # the LM paths (serving, training) launch none of the five
+LM_KERNELS = ()       # the LM paths (serving, training) launch none of ours
 # train phase: Llama-3-8B at every published width with tp = 1, as the
 # reference's single-axis FSDP training variants set it
 # (src/repro/configs/families.py), depth cut
@@ -473,32 +484,98 @@ def kernel_phase(torch, np, args, index, params, plan, queries) -> list:
         entry(name, "src/repro_torch/csrc/ntt.cu", rep, timed[-1], *timed[:-1])
 
     # pointwise product at the batched decryption shape, at one request's
-    # (num_ct rows) and at one polynomial (encryption)
+    # (num_ct rows) and at one polynomial, with b full and with b one row
+    # broadcast over a (expanded, read in place: the shape of a key or a
+    # query row over a batch); every prime checked.  Bound: the bytes read
+    # (b's rows once) and written
     timed = []
     for polys_n in (1, num_ct, batch_rows):
-        for c in params.ctxs[1:]:
-            aa, bb = residues((polys_n, n), c.q), residues((polys_n, n), c.q)
-            compare("pointwise_mul",
-                    lambda: kntt.pointwise_mul_cuda(aa, bb, c),
-                    lambda: nref.pointwise_mul_ref(aa, bb, c))
-        a = residues((polys_n, n), ctx.q)
-        b = residues((polys_n, n), ctx.q)
-        err = compare("pointwise_mul",
-                      lambda: kntt.pointwise_mul_cuda(a, b, ctx),
-                      lambda: nref.pointwise_mul_ref(a, b, ctx))
-        timed.append(measure(
-            err, lambda: kntt.pointwise_mul_cuda(a, b, ctx),
-            lambda: nref.pointwise_mul_ref(a, b, ctx), 3 * polys_n * n * 4,
-            polys_n * n, INT32_OPS_S, shape=[polys_n, n]))
+        for kind in ("full", "row"):
+            def operands(c):
+                b_rows = polys_n if kind == "full" else 1
+                return (residues((polys_n, n), c.q),
+                        residues((b_rows, n), c.q).expand(polys_n, n))
+            for c in params.ctxs[1:]:
+                aa, bb = operands(c)
+                compare("pointwise_mul",
+                        lambda: kntt.pointwise_mul_cuda(aa, bb, c),
+                        lambda: nref.pointwise_mul_ref(aa, bb, c))
+            a, b = operands(ctx)
+            err = compare("pointwise_mul",
+                          lambda: kntt.pointwise_mul_cuda(a, b, ctx),
+                          lambda: nref.pointwise_mul_ref(a, b, ctx))
+            b_rows = polys_n if kind == "full" else 1
+            timed.append(measure(
+                err, lambda: kntt.pointwise_mul_cuda(a, b, ctx),
+                lambda: nref.pointwise_mul_ref(a, b, ctx),
+                4 * (2 * polys_n + b_rows) * n, polys_n * n, INT32_OPS_S,
+                shape=[polys_n, n], b=kind))
     entry("pointwise_mul", "src/repro_torch/csrc/ntt.cu",
           "src/repro/kernels/ntt/ntt.py:120", timed[-1], *timed[:-1])
+
+    # the key product iNTT(NTT(a) * s) over every prime in one launch: one
+    # encryption (1, P, N), one request's decryption (num_ct, P, N) under
+    # one key, and the batch's (B, num_ct, P, N) under per-lane keys,
+    # recorded as (rows, P, N); every prime held bit for bit to the plain
+    # version and to the three standalone kernels chained prime by prime
+    # (the path before the key product), which is timed beside it
+    nprimes = params.num_primes
+    timed = []
+    for lead, keys in (((1,), 1), ((num_ct,), 1), ((bsz, num_ct), bsz)):
+        a = torch.stack([residues(lead + (n,), c.q) for c in params.ctxs],
+                        dim=-2)
+        key_lead = (keys,) + (1,) * (len(lead) - 1) if keys > 1 else ()
+        s_hat = torch.stack([residues(key_lead + (n,), c.q)
+                             for c in params.ctxs], dim=-2)
+        krows = math.prod(lead)
+        a3 = a.reshape(krows, nprimes, n)
+        s3 = s_hat.reshape(-1, nprimes, n)
+        slices = [(a3[:, i].contiguous(),
+                   s3[:, i].repeat_interleave(krows // keys, dim=0)
+                   if keys > 1 else s3[0, i].expand(krows, n), c)
+                  for i, c in enumerate(params.ctxs)]
+
+        def kern(a3=a3, s3=s3):
+            return kntt.key_mul_cuda(a3, s3, params.ctxs)
+
+        def chain(slices=slices):
+            return [kntt.ntt_cuda(kntt.pointwise_mul_cuda(
+                kntt.ntt_cuda(x, c), k, c), c, inverse=True)
+                for x, k, c in slices]
+
+        def plain(a3=a3, s3=s3, keys=keys, krows=krows):
+            return nref.key_mul_ref(
+                a3.view(keys, krows // keys, nprimes, n), s3[:, None],
+                params.ctxs).view(krows, nprimes, n)
+
+        err = compare("key_mul", kern, plain)
+        chain_err = int_err(kern(), torch.stack(chain(), dim=1))
+        check(chain_err == 0, f"key_mul differs from the chained standalone "
+                              f"kernels by {chain_err}")
+        # the polynomials in and out, the keys and the forward and inverse
+        # twiddle tables; two networks (3 ops a butterfly), the product and
+        # the inverse's N^-1 scaling.  The plain version's ~600 launches a
+        # call are timed by `call_ms`
+        polys = krows * nprimes
+        timed.append(measure(
+            err, kern, plain,
+            4 * (2 * polys * n + keys * nprimes * n + 2 * nprimes * n),
+            polys * (2 * (n // 2) * logn * 3 + 2 * n), INT32_OPS_S,
+            plain_call=True, shape=[krows, nprimes, n], keys=keys,
+            chain_ms=time_ms(torch, chain, REPS, BURST),
+            chain_max_abs_err=chain_err))
+    entry("key_mul", "src/repro_torch/csrc/ntt.cu",
+          "src/repro/kernels/ntt/ntt.py:120", timed[-1], *timed[:-1])
+    out[-1]["fuses"] = ["src/repro/kernels/ntt/ntt.py:94 (forward)",
+                        "src/repro/kernels/ntt/ntt.py:120",
+                        "src/repro/kernels/ntt/ntt.py:94 (inverse)"]
 
     # fused rotate / Hadamard / accumulate / inverse NTT reading the
     # gathered rows (B, k', chunks, P, N) in place, as the path calls it,
     # for the batch and for one request: every prime checked bit for bit,
     # the timed calls cycling through the primes as the path does (the
     # batch's rows, 63 MB, then exceed the L2)
-    kprime, nprimes = plan.kprime, params.num_primes
+    kprime = plan.kprime
     timed, witness_inputs = [], None
     for b in (1, bsz):
         g = torch.empty((b, kprime, chunks, nprimes, n), dtype=torch.int32,
@@ -861,9 +938,15 @@ def path_launches(name: str, counts: dict,
                   kernels: tuple = PATH_KERNELS) -> dict:
     """Fail unless every kernel of the path (``kernels``: the RLWE serving
     path's by default) launched in ``counts`` (one path's run, counts set
-    to 0 just before it)."""
+    to 0 just before it); on the RLWE serving path, fail if a kernel of
+    `OFF_PATH_KERNELS` launched."""
     for kern in kernels:
         check(counts.get(kern, 0) > 0, f"{name}: kernel {kern} not launched")
+    if kernels == PATH_KERNELS:
+        for kern in OFF_PATH_KERNELS:
+            check(counts.get(kern, 0) == 0,
+                  f"{name}: {kern} launched {counts.get(kern)} times on "
+                  f"the serving path")
     return counts
 
 
@@ -2128,7 +2211,7 @@ def attack_phase(torch, np, args) -> tuple:
 
 
 def lm_path(name: str, counts: dict) -> dict:
-    """The LM paths, serving and training, run none of the five kernels
+    """The LM paths, serving and training, run none of our kernels
     (``LM_KERNELS`` is empty): fail if any launched in ``counts`` (one
     run, counts set to 0 just before it)."""
     path_launches(name, counts, LM_KERNELS)

@@ -6,10 +6,10 @@ tensors: residues are canonical in [0, q) with q < 2^20, so a product is
 below 2^40 and ``%`` gives the same bits as the reference's int32 limb
 split (which existed only to fit TPU int32 lanes).  The CUDA kernels use a
 64-bit Barrett reduction with ``barrett64 = floor(2^64 / q)`` (pointwise
-product, the fused re-rank's Hadamard products and sums) or Shoup products
-with a precomputed quotient ``floor(w * 2^32 / q)`` for every constant
-``w`` (the NTT's twiddles, the fused re-rank's slot twiddles:
-`shoup_quotients`).
+product, the key product, the fused re-rank's Hadamard products and sums)
+or Shoup products with a precomputed quotient ``floor(w * 2^32 / q)`` for
+every constant ``w`` (the NTT's twiddles, the fused re-rank's slot
+twiddles: `shoup_quotients`).
 """
 
 from __future__ import annotations
@@ -173,6 +173,42 @@ class PrimeCtx:
         return t
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class RnsTables:
+    """The NTT tables of several primes of one ring, stacked (P, N) int32 on
+    one device (`PrimeCtx.table`'s, row p for prime p), the moduli as a
+    (P, 1) int32 column for epilogues over all primes, and the per-prime
+    scalars of the key-product kernel, flattened: (q, barrett64, N^-1 and
+    the inverse's folded tail as `PrimeCtx.inv_tail`) for each prime."""
+
+    psi: torch.Tensor
+    psi_shoup: torch.Tensor
+    ipsi: torch.Tensor
+    ipsi_shoup: torch.Tensor
+    q: torch.Tensor
+    consts: tuple
+
+
+_rns_tables: dict = {}
+
+
+def rns_tables(ctxs, device: torch.device) -> RnsTables:
+    """The stacked tables of ``ctxs`` on ``device``, built once per device
+    (memoized like `PrimeCtx.table`)."""
+    key = (tuple((c.q, c.n) for c in ctxs), str(device))
+    t = _rns_tables.get(key)
+    if t is None:
+        stack = {kind: torch.stack([c.table(kind, device) for c in ctxs])
+                 for kind in ("psi", "psi_shoup", "ipsi", "ipsi_shoup")}
+        t = _rns_tables[key] = RnsTables(
+            **stack,
+            q=torch.tensor([[c.q] for c in ctxs], dtype=torch.int32,
+                           device=device),
+            consts=tuple(v for c in ctxs
+                         for v in (c.q, c.barrett64, *c.inv_tail)))
+    return t
+
+
 # ---------------------------------------------------------------------------
 # Device primitives on int64 tensors (canonical residues in [0, q))
 # ---------------------------------------------------------------------------
@@ -245,6 +281,8 @@ __all__ = [
     "root_of_unity",
     "bit_reverse_indices",
     "PrimeCtx",
+    "RnsTables",
+    "rns_tables",
     "shoup_quotients",
     "barrett_reduce",
     "mod_mul",

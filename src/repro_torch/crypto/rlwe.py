@@ -206,7 +206,10 @@ def encrypt_query(sk: RlweSecretKey, e: np.ndarray,
                   rng: np.random.Generator) -> QueryCiphertext:
     """Encrypt a unit-norm query embedding of any dimension (chunked), on
     the key's device.  The host draws (per chunk: the noise, then one
-    uniform ``a`` per prime) keep the reference's order."""
+    uniform ``a`` per prime) keep the reference's order; ``a`` is laid out
+    (chunks, P, N) as it is drawn, so one copy to the device is the
+    ciphertext's c1 and one key product (`ntt_ops.key_mul`, every prime in
+    one launch on the card) gives a*s."""
     p = sk.params
     dev = sk.s_ntt.device
     n_dim = e.shape[-1]
@@ -214,7 +217,7 @@ def encrypt_query(sk: RlweSecretKey, e: np.ndarray,
     ints = _fixed_point(e, p.scale_q)
     m = np.zeros((chunks, p.n_poly), np.int64)
     err = np.zeros((chunks, p.n_poly), np.int64)
-    a = np.zeros((p.num_primes, chunks, p.n_poly), np.int32)
+    a = np.zeros((chunks, p.num_primes, p.n_poly), np.int32)
     for c in range(chunks):
         seg = ints[c * p.chunk:(c + 1) * p.chunk]
         m[c, : len(seg)] = seg
@@ -222,37 +225,31 @@ def encrypt_query(sk: RlweSecretKey, e: np.ndarray,
         # reference for why an unsigned mod-t lift would break plain-mult)
         err[c] = _cbd(rng, p.eta, p.n_poly)
         for i, ctx in enumerate(p.ctxs):
-            a[i, c] = rng.integers(0, ctx.q, size=(p.n_poly,)).astype(np.int32)
-    err_t = torch.from_numpy(err).to(dev)
-    c0s, c1s = [], []
-    for i, ctx in enumerate(p.ctxs):
-        a_i = torch.from_numpy(a[i]).to(dev)
-        dm = torch.from_numpy((int(p.delta % ctx.q) * np.mod(m, ctx.q)) % ctx.q
-                              ).to(dev)
-        s_i = sk.s_ntt[i].expand(chunks, p.n_poly)
-        a_s = ntt_ops.ntt_inv(
-            ntt_ops.pointwise_mul(ntt_ops.ntt_fwd(a_i, ctx), s_i, ctx), ctx)
-        c0s.append(torch.remainder(a_s.to(torch.int64) + err_t + dm, ctx.q)
-                   .to(torch.int32))
-        c1s.append(a_i)
-    return QueryCiphertext(c0=torch.stack(c0s, dim=1),
-                           c1=torch.stack(c1s, dim=1), n_dim=n_dim)
+            a[c, i] = rng.integers(0, ctx.q, size=(p.n_poly,)).astype(np.int32)
+    # e + Delta*m mod q_i on the host, (chunks, P, N): canonical, so the
+    # device sum with a*s below 2q fits int32 and one remainder ends it
+    q = np.array(p.primes, np.int64)[:, None]
+    delta = np.array([p.delta % qi for qi in p.primes], np.int64)[:, None]
+    em = np.mod(err[:, None] + delta * np.mod(m[:, None], q) % q, q)
+    c1 = torch.from_numpy(a).to(dev)
+    a_s = ntt_ops.key_mul(c1, sk.s_ntt, p.ctxs)
+    c0 = torch.remainder(a_s + torch.from_numpy(em.astype(np.int32)).to(dev),
+                         modring.rns_tables(p.ctxs, dev).q)
+    return QueryCiphertext(c0=c0, c1=c1, n_dim=n_dim)
 
 
 def decrypt_rns(params: RlweParams, s_ntt: torch.Tensor, c0: torch.Tensor,
                 c1: torch.Tensor) -> np.ndarray:
-    """RNS phase of decryption: d = c0 - c1*s per prime, on the device.
+    """RNS phase of decryption: d = c0 - c1*s over every prime, on the
+    device: one key product (`ntt_ops.key_mul`) and one modular
+    subtraction.
 
     ``c0``/``c1`` are (..., P, N); ``s_ntt`` broadcasts against the leading
-    dims of NTT(c1) — (P, N) for one key or (B, 1, P, N) for per-tenant
-    keys.  Returns host int64 (..., P, N)."""
-    d_p = []
-    for i, ctx in enumerate(params.ctxs):
-        f1 = ntt_ops.ntt_fwd(c1[..., i, :], ctx)
-        sb = s_ntt[..., i, :].expand(f1.shape)
-        c1s = ntt_ops.ntt_inv(ntt_ops.pointwise_mul(f1, sb, ctx), ctx)
-        d_p.append(modring.mod_sub(c0[..., i, :], c1s, ctx.q))
-    return torch.stack(d_p, dim=-2).cpu().numpy().astype(np.int64)
+    dims of c1 — (P, N) for one key or (B, 1, P, N) for per-tenant keys.
+    Returns host int64 (..., P, N)."""
+    c1s = ntt_ops.key_mul(c1, s_ntt, params.ctxs)
+    d = modring.mod_sub(c0, c1s, modring.rns_tables(params.ctxs, c1.device).q)
+    return d.cpu().numpy().astype(np.int64)
 
 
 def extract_scores(params: RlweParams, d_rns: np.ndarray, n_dim: int,
@@ -289,8 +286,8 @@ def decrypt_scores(sk: RlweSecretKey, res: ScoreCiphertexts) -> np.ndarray:
 
 def decrypt_scores_batch(sks: Sequence[RlweSecretKey], cts) -> list:
     """Decrypt B score ciphertexts under B (distinct) tenant keys with one
-    NTT launch per prime and kernel; CRT extraction stays per lane (host
-    bignums).  ``cts`` is a list of ScoreCiphertexts or a
+    key-product launch over every lane and prime; CRT extraction stays per
+    lane (host bignums).  ``cts`` is a list of ScoreCiphertexts or a
     ScoreCiphertextBatch."""
     params = sks[0].params
     if isinstance(cts, ScoreCiphertextBatch):

@@ -18,8 +18,10 @@
 #include <stdexcept>
 #include <string>
 #include <tuple>
+#include <vector>
 
 #include "fused.h"
+#include "keymul.h"
 
 extern "C" {
 int ntt_fwd_launch(const void* x, void* out, const void* psi,
@@ -29,8 +31,6 @@ int ntt_inv_launch(const void* x, void* out, const void* ipsi,
                    const void* ipsi_shoup, int64_t batch, int n, uint32_t q,
                    uint32_t n_inv, uint32_t n_inv_s, uint32_t tail_w,
                    uint32_t tail_ws, void* stream);
-int pointwise_mul_launch(const void* a, const void* b, void* out,
-                         int64_t count, uint32_t q, uint64_t m, void* stream);
 int score_topk_launch(const void* queries, const void* corpus, void* vals,
                       void* idx, int batch, int n_rows, int dim, int kk,
                       int tile, void* stream);
@@ -136,20 +136,140 @@ Tensor ntt(const Tensor& x, const Tensor& table, const Tensor& shoup,
   return out;
 }
 
+// b: a's shape with any leading strides (0 where it is broadcast) and unit
+// stride in the last dim; its leading dims are collapsed for the kernel
+// (keymul.h), innermost first.
+BcastArgs bcast_args(const Tensor& b) {
+  BcastArgs bc{};
+  int dims = 0;
+  for (int64_t d = b.dim() - 2; d >= 0; --d) {
+    if (b.size(d) == 1) continue;
+    if (dims > 0 && b.stride(d) == bc.stride[dims - 1] * bc.size[dims - 1]) {
+      bc.size[dims - 1] *= b.size(d);        // merges with its inner neighbour
+      continue;
+    }
+    if (dims == kMaxBcastDims) {
+      value_error("b's strides leave more than " + str(kMaxBcastDims) +
+                  " leading dims after merging; shape " + shape(b));
+    }
+    bc.size[dims] = b.size(d);
+    bc.stride[dims] = b.stride(d);
+    ++dims;
+  }
+  bc.dims = dims;
+  return bc;
+}
+
 Tensor pointwise_mul(const Tensor& a, const Tensor& b, int64_t q, int64_t m) {
   check_tensor(a, "a", torch::kInt32, a.dim());
-  check_tensor(b, "b", torch::kInt32, a.dim());
+  check_tensor(b, "b", torch::kInt32, a.dim(), false);
+  if (a.dim() < 1) value_error("a must have at least one dimension");
   if (a.sizes() != b.sizes()) {
     value_error("shapes differ: " + shape(a) + " vs " + shape(b));
   }
   check_modulus(q);
+  const int64_t inner = a.size(-1);
+  const int64_t rows = inner > 0 ? a.numel() / inner : 0;
+  const int64_t vw = inner % 4 == 0 ? 4 : inner % 2 == 0 ? 2 : 1;
+  if (a.numel() / vw >= (int64_t{1} << 31)) {
+    value_error("a has " + str(a.numel()) + " elements; the kernel takes " +
+                "fewer than 2^31 vectors of " + str(vw));
+  }
+  if (inner > 1 && b.stride(-1) != 1) {
+    value_error("b must have unit stride in its last dim, got " +
+                str(b.stride(-1)));
+  }
+  for (int64_t d = 0; d + 1 < b.dim(); ++d) {
+    if (b.stride(d) % vw != 0) {
+      value_error("b's strides must be multiples of " + str(vw) +
+                  ", got " + str(b.stride(d)) + " in dim " + str(d));
+    }
+  }
+  for (const Tensor* t : {&a, &b}) {
+    if (reinterpret_cast<uintptr_t>(t->data_ptr()) % (4 * vw) != 0) {
+      value_error("a and b must be " + str(4 * vw) + "-byte aligned");
+    }
+  }
+  const BcastArgs bc = bcast_args(b);
   const c10::cuda::CUDAGuard guard(a.device());
   Tensor out = torch::empty_like(a);
   check_launch(pointwise_mul_launch(a.data_ptr(), b.data_ptr(),
-                                    out.data_ptr(), a.numel(),
+                                    out.data_ptr(), rows, inner, &bc,
                                     static_cast<uint32_t>(q),
                                     static_cast<uint64_t>(m), stream()),
                "pointwise_mul_launch");
+  return out;
+}
+
+// a (R, P, N): any row and prime strides, unit stride in N; s (K, P, N)
+// contiguous, K dividing R (row r takes key r / (R / K)); the (P, N)
+// tables of every prime; consts: per prime (q, floor(2^64 / q), N^-1, its
+// Shoup quotient, the inverse's folded tail twiddle, its quotient).
+Tensor key_mul(const Tensor& a, const Tensor& s, const Tensor& psi,
+               const Tensor& psi_shoup, const Tensor& ipsi,
+               const Tensor& ipsi_shoup, const std::vector<int64_t>& consts) {
+  check_tensor(a, "a", torch::kInt32, 3, false);
+  check_tensor(s, "s", torch::kInt32, 3);
+  const int64_t rows = a.size(0), primes = a.size(1), n = a.size(2);
+  if (primes < 1 || primes > kMaxPrimes) {
+    value_error("a has " + str(primes) + " primes; the kernel takes 1 to " +
+                str(kMaxPrimes));
+  }
+  const std::string want = "(" + str(primes) + ", " + str(n) + ")";
+  for (const Tensor* t : {&psi, &psi_shoup, &ipsi, &ipsi_shoup}) {
+    check_tensor(*t, "tables", torch::kInt32, 2);
+    if (t->size(0) != primes || t->size(1) != n) {
+      value_error("tables must be (P, N) = " + want + " for a of shape " +
+                  shape(a) + ", got " + shape(*t));
+    }
+  }
+  if (static_cast<int64_t>(consts.size()) != 6 * primes) {
+    value_error("consts hold " + str(static_cast<int64_t>(consts.size())) +
+                " values, want 6 for each of " + str(primes) + " primes");
+  }
+  for (int64_t p = 0; p < primes; ++p) check_ring(n, consts[6 * p]);
+  const int64_t keys = s.size(0);
+  if (s.size(1) != primes || s.size(2) != n ||
+      (keys < 1 ? rows != 0 : rows % keys != 0)) {
+    value_error("keys of shape " + shape(s) + " do not broadcast over a of " +
+                "shape " + shape(a) + ": want (K, " + str(primes) + ", " +
+                str(n) + ") with K dividing " + str(rows));
+  }
+  const int64_t vw = n < 4 ? n : 4;
+  if (a.stride(2) != 1 || a.stride(0) % vw || a.stride(1) % vw ||
+      reinterpret_cast<uintptr_t>(a.data_ptr()) % (4 * vw) != 0 ||
+      reinterpret_cast<uintptr_t>(s.data_ptr()) % (4 * vw) != 0) {
+    value_error("a must have unit stride in N and strides divisible by " +
+                str(vw) + ", a and s " + str(4 * vw) + "-byte aligned; " +
+                "a's strides (" + str(a.stride(0)) + ", " + str(a.stride(1)) +
+                ", " + str(a.stride(2)) + ")");
+  }
+  const c10::cuda::CUDAGuard guard(a.device());
+  Tensor out = torch::empty({rows, primes, n}, a.options());
+  KeyMulArgs k{};
+  k.a = a.data_ptr();
+  k.stride_row = a.stride(0);
+  k.stride_prime = a.stride(1);
+  k.s = s.data_ptr();
+  k.rows_per_key = keys > 0 ? rows / keys : 0;
+  k.psi = psi.data_ptr();
+  k.psi_shoup = psi_shoup.data_ptr();
+  k.ipsi = ipsi.data_ptr();
+  k.ipsi_shoup = ipsi_shoup.data_ptr();
+  k.out = out.data_ptr();
+  k.rows = rows;
+  k.primes = static_cast<int>(primes);
+  k.n = static_cast<int>(n);
+  for (int64_t p = 0; p < primes; ++p) {
+    const int64_t* c = consts.data() + 6 * p;
+    k.prime[p] = KeyMulPrime{static_cast<uint32_t>(c[0]),
+                             static_cast<uint64_t>(c[1]),
+                             static_cast<uint32_t>(c[2]),
+                             static_cast<uint32_t>(c[3]),
+                             static_cast<uint32_t>(c[4]),
+                             static_cast<uint32_t>(c[5])};
+  }
+  check_launch(key_mul_launch(&k, stream()), "key_mul_launch");
   return out;
 }
 
@@ -353,7 +473,10 @@ std::tuple<Tensor, Tensor> score_topk(const Tensor& queries,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("ntt", &ntt, "batched negacyclic NTT (csrc/ntt.cu)");
   mod.def("pointwise_mul", &pointwise_mul,
-          "elementwise modular product (csrc/ntt.cu)");
+          "elementwise modular product, b read through its strides "
+          "(csrc/ntt.cu)");
+  mod.def("key_mul", &key_mul,
+          "iNTT(NTT(a) * s) for every RNS prime in one launch (csrc/ntt.cu)");
   mod.def("fused_rerank_intt", &fused_rerank_intt,
           "fused rotate/Hadamard/sum/inverse NTT (csrc/fused.cu)");
   mod.def("fused_rerank_intt_gathered", &fused_rerank_intt_gathered,

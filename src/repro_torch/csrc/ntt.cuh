@@ -117,7 +117,12 @@ __host__ __device__ constexpr int slot(int off) { return off + (off >> 5); }
 // kFromShared: the caller has written the polynomial to shared memory in the
 // padded layout (coefficient i at pad(i)) and synchronised, so the first
 // pass reads it there instead of from device memory (`src` is unused).
-template <int LOGN, bool kInverse, bool kFromShared = false>
+// kToShared: the last pass leaves the polynomial in shared memory in that
+// layout, lazy (forward: in [0, 4q)), instead of writing canonical residues
+// to device memory (`dst` is unused); the caller synchronises before it
+// reads them and reduces them itself.
+template <int LOGN, bool kInverse, bool kFromShared = false,
+          bool kToShared = false>
 struct Ntt {
   static constexpr int LOGE = LOGN < kMaxLogE ? LOGN : kMaxLogE;
   static constexpr int E = 1 << LOGE;
@@ -193,18 +198,18 @@ struct Ntt {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         uint32_t x = v[h * K + k];
-        if constexpr (kLast) {
+        if constexpr (kLast && !kToShared) {
           if (!kInverse) x = sub_if(x, 2 * q);
           x = sub_if(x, q);
         }
-        if constexpr (!kLast || kStaged) {
+        if constexpr (!kLast || kStaged || kToShared) {
           p[slot(k * TMIN)] = x;
         } else {
           if (live) dst[base[h] + k * TMIN] = static_cast<int32_t>(x);
         }
       }
     }
-    if constexpr (kLast && kStaged) {  // coalesced shared -> device
+    if constexpr (kLast && kStaged && !kToShared) {  // shared -> device
       __syncthreads();
       const uint32_t* p = sp + pad(tid);
       if (live) {

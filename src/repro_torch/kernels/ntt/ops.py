@@ -8,6 +8,8 @@ raises — there is no switch that hides it behind the plain version.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.crypto.modring import PrimeCtx, shoup_quotients
@@ -35,11 +37,49 @@ def ntt_inv(x: torch.Tensor, ctx: PrimeCtx) -> torch.Tensor:
 
 def pointwise_mul(a: torch.Tensor, b: torch.Tensor,
                   ctx: PrimeCtx) -> torch.Tensor:
-    """Hadamard modular product in the NTT domain (same shapes)."""
+    """Hadamard modular product in the NTT domain; ``b`` broadcasts to a's
+    shape (the kernel reads an expanded ``b`` in place)."""
     if not on_cuda(a):
         return _ref.pointwise_mul_ref(a, b, ctx)
-    return _kern.pointwise_mul_cuda(a.to(torch.int32).contiguous(),
-                                    b.to(torch.int32).contiguous(), ctx)
+    a = a.to(torch.int32).contiguous()
+    b = b.to(torch.int32).expand(a.shape)
+    if b.shape[-1] > 1 and b.stride(-1) != 1:
+        b = b.contiguous()
+    return _kern.pointwise_mul_cuda(a, b, ctx)
+
+
+def _key_count(lead: tuple, key_lead: tuple) -> int:
+    """Keys ``key_lead`` (a prefix of a's leading dims ``lead``, then 1s)
+    -> their number K: row r of the flattened a takes key r // (R // K)."""
+    k = len(key_lead)
+    while k and key_lead[k - 1] == 1:
+        k -= 1
+    if len(key_lead) > len(lead) or tuple(key_lead[:k]) != tuple(lead[:k]):
+        raise ValueError(f"keys with leading shape {tuple(key_lead)} do not "
+                         f"broadcast over a's leading shape {tuple(lead)} as "
+                         f"a prefix followed by 1s")
+    return math.prod(lead[:k])
+
+
+def key_mul(a: torch.Tensor, s_hat: torch.Tensor, ctxs) -> torch.Tensor:
+    """The RLWE key product iNTT_p(NTT_p(a[..., p, :]) * s_hat[..., p, :])
+    for every prime p: a (..., P, N) coefficient-domain residues; s_hat
+    NTT-domain keys, (P, N) for one key or one key per leading index of a,
+    e.g. (B, 1, P, N) per-tenant keys over a (B, num_ct, P, N).  Returns
+    (..., P, N) int32.
+
+    On CUDA tensors one launch covers every prime and row, reading ``a``
+    in place where its leading dims flatten to one stride; on the CPU the
+    plain version runs the per-prime chain."""
+    keys = _key_count(tuple(a.shape[:-2]), tuple(s_hat.shape[:-2]))
+    if not on_cuda(a):
+        return _ref.key_mul_ref(a, s_hat, ctxs)
+    p, n = a.shape[-2:]
+    a3 = a.to(torch.int32).reshape(-1, p, n)
+    if n > 1 and a3.stride(-1) != 1:
+        a3 = a3.contiguous()
+    s3 = s_hat.to(torch.int32).reshape(keys, p, n).contiguous()
+    return _kern.key_mul_cuda(a3, s3, ctxs).reshape(a.shape)
 
 
 def fused_rotate_hadamard(polys, tw, f0, f1, ctx: PrimeCtx):
@@ -101,6 +141,7 @@ def negacyclic_mul(a, b, ctx: PrimeCtx):
     return ntt_inv(pointwise_mul(ntt_fwd(a, ctx), ntt_fwd(b, ctx), ctx), ctx)
 
 
-__all__ = ["ntt_fwd", "ntt_inv", "pointwise_mul", "fused_rotate_hadamard",
+__all__ = ["ntt_fwd", "ntt_inv", "pointwise_mul", "key_mul",
+           "fused_rotate_hadamard",
            "fused_rotate_hadamard_intt",
            "fused_rotate_hadamard_intt_gathered", "negacyclic_mul"]

@@ -64,6 +64,17 @@ def pointwise_mul_ref(a: torch.Tensor, b: torch.Tensor,
     return modring.mod_mul(a, b.to(torch.int64), ctx.q).to(torch.int32)
 
 
+def key_mul_ref(a: torch.Tensor, s_hat: torch.Tensor, ctxs) -> torch.Tensor:
+    """iNTT_p(NTT_p(a[..., p, :]) * s_hat[..., p, :]) for every prime p,
+    prime by prime: a (..., P, N) int in [0, q_p); s_hat NTT-domain keys
+    broadcasting against a's leading dims.  Returns (..., P, N) int32."""
+    assert a.shape[-2] == len(ctxs), (a.shape, len(ctxs))
+    return torch.stack([
+        ntt_inv_ref(pointwise_mul_ref(ntt_fwd_ref(a[..., i, :], ctx),
+                                      s_hat[..., i, :], ctx), ctx)
+        for i, ctx in enumerate(ctxs)], dim=-2)
+
+
 def fused_rotate_hadamard_ref(polys, tw, f0, f1, ctx: PrimeCtx):
     """Rotate -> Hadamard(c0, c1) -> slot/chunk mod-sum, NTT domain.
 
@@ -119,7 +130,7 @@ def random_poly(rng: np.random.Generator, shape, q: int) -> np.ndarray:
     return rng.integers(0, q, size=shape, dtype=np.int64).astype(np.int32)
 
 
-__all__ = ["ntt_fwd_ref", "ntt_inv_ref", "pointwise_mul_ref",
+__all__ = ["ntt_fwd_ref", "ntt_inv_ref", "pointwise_mul_ref", "key_mul_ref",
            "fused_rotate_hadamard_ref", "fused_rotate_hadamard_intt_ref",
            "gathered_polys", "fused_rotate_hadamard_intt_gathered_ref",
            "negacyclic_mul_ref", "random_poly"]

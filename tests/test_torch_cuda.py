@@ -24,6 +24,7 @@ from repro_torch.crypto import rlwe
 from repro_torch.crypto.modring import PrimeCtx
 from repro_torch.kernels import ext
 from repro_torch.kernels.ntt import fused as kfused
+from repro_torch.kernels.ntt import ntt as kntt
 from repro_torch.kernels.ntt import ops as ntt_ops
 from repro_torch.kernels.ntt import ref as nref
 from repro_torch.kernels.scoretopk import ops as sops
@@ -82,6 +83,80 @@ def test_ntt_kernels_bit_identical(cuda, n, batch):
         if want is not None:
             got = ntt_ops.negacyclic_mul(xc[:1], yc[:1], ctx).cpu().numpy()
             np.testing.assert_array_equal(got, want)
+
+
+# (N, B, num_ct, keys): N = 2 (the smallest ring, 2-word vectors), 16 and
+# 256 (256 and 16 polynomials a block: 41 rows straddle blocks), batch 0,
+# one encryption, one request's decryption, the batch of 8 with tenant
+# keys, and the large rings (512 and 1024 threads a block)
+KEY_MUL_CASES = [(2, 1, 41, "one"), (2, 3, 41, "tenant"),
+                 (16, 2, 41, "tenant"), (256, 3, 41, "tenant"),
+                 (256, 0, 41, "tenant"), (256, 5, 1, "tenant"),
+                 (4096, 1, 1, "one"), (4096, 1, 41, "one"),
+                 (4096, 8, 41, "tenant"), (8192, 1, 5, "one"),
+                 (16384, 1, 1, "one"), (16384, 2, 3, "tenant")]
+
+
+@pytest.mark.parametrize("n,bsz,num_ct,keys", KEY_MUL_CASES)
+def test_key_mul_kernel_bit_identical(cuda, n, bsz, num_ct, keys):
+    """The key product on every prime equals its plain version and the
+    three standalone kernels chained prime by prime; ``a`` is read in place
+    both contiguous and prime-major (strided, as encryption draws it)."""
+    ctxs = _ctxs(n)
+    rng = np.random.default_rng(n + 7 * bsz + num_ct)
+    a = np.stack([nref.random_poly(rng, (bsz, num_ct, n), c.q)
+                  for c in ctxs])                       # (P, B, num_ct, N)
+    s = np.stack([nref.random_poly(rng, (bsz, 1, n) if keys == "tenant"
+                                   else (n,), c.q) for c in ctxs], axis=-2)
+    at = torch.from_numpy(a).permute(1, 2, 0, 3)
+    st = torch.from_numpy(s)
+    want = nref.key_mul_ref(at, st, ctxs)
+    strided = at.to(cuda)
+    assert not strided.is_contiguous() or bsz * num_ct <= 1
+    for x in (strided, at.contiguous().to(cuda)):
+        got = ntt_ops.key_mul(x, st.to(cuda), ctxs)
+        assert got.shape == want.shape
+        assert torch.equal(got.cpu(), want)
+    if bsz == 0:
+        return
+    xc, sc = at.contiguous().to(cuda), st.to(cuda)
+    for i, c in enumerate(ctxs):
+        chain = ntt_ops.ntt_inv(ntt_ops.pointwise_mul(
+            ntt_ops.ntt_fwd(xc[..., i, :], c), sc[..., i, :], c), c)
+        assert torch.equal(got[..., i, :], chain)
+
+
+# (a's shape, b): b one row expanded, full, expanded over the middle dim
+# (three collapsed dims), a transposed view (two unmergeable dims), and
+# rows of 7 and 2 residues (4- and 8-byte vectors)
+POINTWISE_CASES = [((328, 4096), "row"), ((41, 4096), "full"),
+                   ((1, 4096), "row"), ((8, 41, 4, 4096), "middle"),
+                   ((6, 5, 8), "transposed"), ((5, 7), "row"),
+                   ((3, 2), "full")]
+
+
+@pytest.mark.parametrize("shape,kind", POINTWISE_CASES)
+def test_pointwise_broadcast_kernel_bit_identical(cuda, shape, kind):
+    n = shape[-1]
+    rng = np.random.default_rng(sum(shape))
+    for q in modring.find_ntt_primes(2 * max(n, 2), 3, lo=1 << 16):
+        ctx = types.SimpleNamespace(q=q, barrett64=(1 << 64) // q)
+        a = torch.from_numpy(nref.random_poly(rng, shape, q))
+        if kind == "row":
+            b = torch.from_numpy(nref.random_poly(rng, (n,), q)).expand(shape)
+        elif kind == "middle":
+            b = torch.from_numpy(nref.random_poly(
+                rng, (shape[0],) + shape[2:], q))[:, None].expand(shape)
+        elif kind == "transposed":
+            b = torch.from_numpy(nref.random_poly(
+                rng, (shape[1], shape[0], n), q)).transpose(0, 1)
+        else:
+            b = torch.from_numpy(nref.random_poly(rng, shape, q))
+        want = nref.pointwise_mul_ref(a, b, ctx)
+        got = kntt.pointwise_mul_cuda(a.to(cuda), b.to(cuda), ctx)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(ntt_ops.pointwise_mul(a.to(cuda), b.to(cuda),
+                                                 ctx).cpu(), want)
 
 
 @pytest.mark.parametrize("bsz,num_ct,cpt,chunks,n",
@@ -267,12 +342,26 @@ polys = torch.zeros((1, 3, 2, n), **i32)
 # contiguous, but 4 bytes past a 16-byte boundary
 skew = torch.zeros((1 + polys.numel(),), **i32)[1:].view(polys.shape)
 tail = (1, 1, 1, 1)
+a3 = torch.zeros((3, 3, n), **i32)
+tab3 = torch.zeros((3, n), **i32)
+consts = [q, bar, *tail] * 3
+skew3 = torch.zeros((1 + a3.numel(),), **i32)[1:].view(a3.shape)
 calls = {
     "ntt dtype": lambda: m.ntt(x.float(), tab, tab, False, q, *tail),
     "ntt table": lambda: m.ntt(x, tab[:7], tab, True, q, *tail),
     "ntt device": lambda: m.ntt(x.cpu(), tab, tab, False, q, *tail),
     "pointwise_mul shape": lambda: m.pointwise_mul(x, x[:1], q, bar),
     "pointwise_mul modulus": lambda: m.pointwise_mul(x, x, 1 << 21, bar),
+    "pointwise_mul misaligned": lambda: m.pointwise_mul(
+        skew[0, 0], skew[0, 0], q, bar),
+    "key_mul primes": lambda: m.key_mul(
+        a3, a3[:1], tab3[:2], tab3[:2], tab3[:2], tab3[:2], consts[:12]),
+    "key_mul consts": lambda: m.key_mul(
+        a3, a3[:1], tab3, tab3, tab3, tab3, consts[:12]),
+    "key_mul misaligned": lambda: m.key_mul(
+        skew3, a3[:1], tab3, tab3, tab3, tab3, consts),
+    "key_mul keys": lambda: m.key_mul(
+        a3, a3[:2], tab3, tab3, tab3, tab3, consts),
     "fused_rerank_intt rows": lambda: m.fused_rerank_intt(
         polys[:, :, :1].contiguous(), tw, tw, f, f, tab, tab, q, bar, *tail),
     "fused_rerank_intt misaligned": lambda: m.fused_rerank_intt(
@@ -337,7 +426,10 @@ def test_binding_argument_errors_raise_value_error(cuda, tmp_path):
                    "strides (3840, 768, 768, 1, 3)", "table has 7 entries",
                    "got a cpu tensor", "got shape (3, 2, 256)",
                    "with cpt 2 and chunks 1", "polys must have unit stride",
-                   "16-byte aligned"):
+                   "16-byte aligned", "a and b must be 16-byte aligned",
+                   "tables must be (P, N) = (3, 256)", "consts hold 12",
+                   "a and s 16-byte aligned",
+                   "keys of shape (2, 3, 256) do not broadcast"):
         assert needle in text, (needle, text)
 
 
@@ -458,7 +550,14 @@ def test_launches_are_counted(cuda):
     ext.reset_launches()
     ntt_ops.ntt_fwd(x, ctx)
     ntt_ops.ntt_fwd(x.cpu(), ctx)               # plain version: not counted
-    assert ext.launch_counts() == {"ntt_fwd": 1}
+    ntt_ops.pointwise_mul(x, x[0], ctx)
+    ctxs = _ctxs(256)
+    a = torch.zeros((2, 5, 3, 256), dtype=torch.int32, device=cuda)
+    ntt_ops.key_mul(a, a[:, :1], ctxs)          # all primes: one launch
+    ntt_ops.key_mul(a.cpu(), a[:, :1].cpu(), ctxs)
+    assert ext.launch_counts() == {"ntt_fwd": 1, "pointwise_mul": 1,
+                                   "key_mul": 1}
+    assert ext.launch_shapes()[("key_mul", (10, 3, 256))] == 1
 
 
 def _kernel_scores(q, e, tile):
