@@ -153,8 +153,24 @@ counterpart of ``repro/configs/remoterag.py``: 10^6 documents of dimension
      "model"), float32 within 1e-5 of the einsum layer in one process
      (relative to its largest output; aux within 1e-5 relative), then
      timed in bf16 beside the single-process layer; the walls of the
-     first stage's all-gather and the combine's all-reduce.  Every rank
-     loads the parent's kernel build (its mtime unchanged).
+     first stage's all-gather and the combine's all-reduce; over the
+     round's mesh index, 16 requests of 4 tenants through a
+     ``ServeEngine`` drained and again stepped with a 2 ms deadline under
+     clocks skewed rank by rank, through a 4-replica ``ReplicaRouter``,
+     and through an engine over 16 cache shards with 4 pinned and
+     row-sharded over the ranks: ids, wire bytes and decrypted scores
+     equal to one process (the router: ids and wire bytes), every
+     serving kernel launched on every rank, a rank's resident cache
+     bytes at most 1/4 of the whole shards' plus a row; GPipe on
+     Llama-3-8B at every published width over ("pod", "data"): 2 float32
+     layers (one a stage) on 8 x 512 tokens in 4 microbatches, loss
+     within 1e-5 and every gradient within 1e-4 normwise of the same
+     model in one process on the card, then 4 bf16 layers timed (ms a
+     step, bubble share, the ppermutes' walls, bytes and host copies,
+     the all-reduces' host copies apart, device peaks); the config_100m re-sharding drill: a checkpoint
+     saved on (2, 2) restored on (4,) and in one process, and a run that
+     dies on (2, 2) resumed on (4,), bit for bit.  Every rank loads the
+     parent's kernel build (its mtime unchanged).
 
 Each path (one-at-a-time, batch, each engine and router run, the text
 pack and engines, each attack setting on the card, the LM's parity run,
@@ -278,6 +294,25 @@ DRILL_STEPS, DRILL_EVERY, DRILL_FAIL, DRILL_BATCH, DRILL_SEQ = \
 MESH_WORLD, MESH_SHAPE, MESH_AXES = 4, (2, 2), ("data", "model")
 MESH_ROUND_DOCS = 2**17
 MESH_MOE_BATCH, MESH_MOE_SEQ, MESH_MOE_REPS = 8, 512, 10
+# (b) over the round's mesh index: the engine (MESH_REQUESTS requests of
+# TENANTS tenants, drained, then stepped under clocks skewed rank by rank
+# with deadline MESH_WAIT_S), the router (ROUTER_REPLICAS replicas) and the
+# sharded cache of NUM_SHARDS shards with MESH_PIN_SHARDS pinned, each
+# row-sharded over the ranks
+MESH_REQUESTS, MESH_WAIT_S, MESH_PIN_SHARDS = 16, 0.002, 4
+# GPipe on TRAIN_ARCH at every published width over MESH_SHAPE ("pod",
+# "data"), depth and tokens cut (four ranks share the card): parity in
+# float32 at GPIPE_PARITY_LAYERS layers, timed in bf16 at GPIPE_LAYERS
+# (GPIPE_STEPS timed steps after GPIPE_WARMUP untimed ones); GPIPE_BATCH x
+# GPIPE_SEQ tokens in GPIPE_MICRO microbatches; the training tolerances of
+# PERF.md section 2
+GPIPE_AXES = ("pod", "data")
+GPIPE_PARITY_LAYERS, GPIPE_LAYERS, GPIPE_STEPS, GPIPE_WARMUP = 2, 4, 3, 2
+GPIPE_BATCH, GPIPE_SEQ, GPIPE_MICRO = 8, 512, 4
+# the re-sharding drill at config_100m: RESHARD_STEPS steps of
+# DRILL_BATCH x RESHARD_SEQ, a checkpoint every RESHARD_EVERY, a failure
+# at RESHARD_FAIL on MESH_SHAPE, resumed on (MESH_WORLD,) ("data",)
+RESHARD_STEPS, RESHARD_EVERY, RESHARD_FAIL, RESHARD_SEQ = 4, 2, 2, 128
 
 
 def paper():
@@ -2855,11 +2890,12 @@ def moe_inputs(torch, spec, seed: int) -> tuple:
     return layer, x
 
 
-def walls_ms(torch, fn, reps: int, barrier=None) -> list:
-    """Host walls of ``reps`` calls of ``fn``, each between two
-    synchronizes (after ``barrier``, when given, so co-located ranks start
-    together)."""
-    fn()
+def walls_ms(torch, fn, reps: int, barrier=None, warmup: int = 1) -> list:
+    """Host walls of ``reps`` calls of ``fn`` after ``warmup`` untimed
+    ones, each between two synchronizes (after ``barrier``, when given, so
+    co-located ranks start together)."""
+    for _ in range(warmup):
+        fn()
     out = []
     for _ in range(reps):
         if barrier is not None:
@@ -2899,7 +2935,8 @@ def mesh_rank(rank: int, workdir: str, cfg: dict) -> None:
             mesh_rank_paths(torch, np, wd, cfg, rank, info, arrays)
         finally:
             mesh_lib.shutdown()
-    info["memory"] = peaks.result
+    info["memory"] = dict(peaks.result, device_peak_gb=max(
+        peaks.result["device_peak_gb"], info.get("device_peak_gb", 0.0)))
     np.savez(wd / f"rank{rank}.npz", **arrays)
     (wd / f"rank{rank}.json").write_text(json.dumps(info))
 
@@ -2941,6 +2978,9 @@ def mesh_rank_paths(torch, np, wd: Path, cfg: dict, rank: int, info: dict,
             shapes=shape_counts(ext.launch_shapes()),
             host_copies=comms.host_copies - copies[0],
             host_bytes=comms.host_bytes - copies[1])
+        # items reset the allocator's peak; the rank's peak is the largest
+        info["device_peak_gb"] = max(info.get("device_peak_gb", 0.0),
+                                     torch.cuda.max_memory_allocated() / 1e9)
         return r
 
     # -- first stage: 10^6 x 768 over both axes -----------------------
@@ -2981,6 +3021,8 @@ def mesh_rank_paths(torch, np, wd: Path, cfg: dict, rank: int, info: dict,
         torch, np, index, docs, queries, plan, params, cfg["seed"],
         cfg["gen_seed"] + 1000 * rank))
     arrays.update({f"round_{k}": v for k, v in got.items()})
+    mesh_serving(torch, np, index, docs, queries, cfg, rank, info, arrays,
+                 path)
     del index
     gc.collect()
     torch.cuda.empty_cache()
@@ -3011,6 +3053,522 @@ def mesh_rank_paths(torch, np, wd: Path, cfg: dict, rank: int, info: dict,
             MESH_MOE_REPS, barrier)
     info["host_copies"] = comms.host_copies
     info["host_bytes"] = comms.host_bytes
+    del layer, x, xb, part
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_gpipe(torch, np, cfg, rank, info, path, barrier)
+    mesh_reshard(torch, np, wd, rank, info, path)
+
+
+def reset_peak(torch, info: dict) -> None:
+    """Fold the allocator's peak so far into ``info["device_peak_gb"]``
+    (the rank's peak), then reset it for the next item's own peak."""
+    info["device_peak_gb"] = max(info.get("device_peak_gb", 0.0),
+                                 torch.cuda.max_memory_allocated() / 1e9)
+    torch.cuda.reset_peak_memory_stats()
+
+
+class ScoreLog:
+    """Records the decrypted scores of every finished lane, in finishing
+    order (a patch on ``RemoteRagUser.positions_from_scores`` while in
+    the ``with`` block)."""
+
+    def __enter__(self) -> "ScoreLog":
+        import numpy as np
+
+        from repro_torch.core import protocol
+
+        self.cls = protocol.RemoteRagUser
+        self.real = self.cls.positions_from_scores
+        self.seen = []
+        log = self
+
+        def record(user, scores, n):
+            log.seen.append(np.asarray(scores)[:n].copy())
+            return log.real(user, scores, n)
+
+        self.cls.positions_from_scores = record
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls.positions_from_scores = self.real
+
+
+def open_tenants(srv, dim: int, n_docs: int, k: int, knob: int) -> None:
+    for t in range(TENANTS):
+        srv.open_session(f"tenant-{t}", n=dim, N=n_docs, k=k,
+                         plan_kwargs={"kprime": knob})
+
+
+def mesh_requests(np, srv, queries, docs, seed: int, *,
+                  step: bool = False) -> dict:
+    """MESH_REQUESTS requests of TENANTS tenants (keys from ``seed``)
+    through ``srv``, drained (with ``step``: one ``step()`` after every
+    submit first).  Every request must succeed with the documents of its
+    ids.  Returns host arrays: ids, wire bytes (request, reply, fetch,
+    docs, total), batch sizes, request ids and, for an engine, the
+    decrypted scores in finishing order."""
+    res = []
+    with ScoreLog() as log:
+        for j in range(MESH_REQUESTS):
+            srv.submit(f"tenant-{j % TENANTS}", queries[j % len(queries)],
+                       key=seed * 1000 + j)
+            if step:
+                res += srv.step()
+        res += srv.drain()
+    res.sort(key=lambda r: r.request_id)
+    check(len(res) == MESH_REQUESTS and all(r.ok for r in res),
+          f"mesh serving: {[r.error for r in res if not r.ok]}")
+    for r in res:
+        check(r.docs == [docs[int(i)] for i in r.ids],
+              f"mesh serving: request {r.request_id}'s documents")
+    tr = lambda r: r.transcript
+    return dict(ids=np.stack([np.asarray(r.ids) for r in res]),
+                bytes=np.array([[tr(r).request_bytes, tr(r).reply_bytes,
+                                 tr(r).fetch_bytes, tr(r).docs_bytes,
+                                 tr(r).total_bytes] for r in res]),
+                sizes=np.array([r.batch_size for r in res]),
+                rids=np.array([r.request_id for r in res]),
+                scores=np.stack(log.seen))
+
+
+def mesh_serving(torch, np, index, docs, queries, cfg: dict, rank: int,
+                 info: dict, arrays: dict, path) -> None:
+    """The engine, the router and the row-sharded cache over the round's
+    mesh index (see `mesh_phase`); results into ``info`` and ``arrays``."""
+    from repro_torch.crypto import rlwe
+    from repro_torch.serve import (EngineConfig, ReplicaRouter, RouterConfig,
+                                   ServeEngine, SessionManager)
+
+    params, seed = cfg["rlwe"], cfg["seed"]
+    open_all = lambda srv: open_tenants(srv, index.dim, index.num_rows,
+                                        cfg["k"], cfg["knob"])
+    sessions = lambda: SessionManager(rlwe_params=params,
+                                      deterministic_seeds=True)
+
+    def engine(clock=time.monotonic, **kw):
+        eng = ServeEngine(index, config=EngineConfig(max_batch=8, **kw),
+                          sessions=sessions(), clock=clock)
+        open_all(eng)
+        return eng
+
+    eng = engine()
+    got = path("engine_drain", lambda: mesh_requests(np, eng, queries, docs,
+                                                     seed))
+    eng.close()
+    arrays.update({f"engine_drain_{k}": v for k, v in got.items()})
+    # a clock that runs at another rate and offset on every rank: the
+    # deadline trigger fires at other steps unless the first rank decides
+    t_zero = time.monotonic()
+    skewed = lambda: (t_zero + (time.monotonic() - t_zero)
+                      * (1.0 + 0.5 * rank) + 100.0 * rank)
+    eng = engine(clock=skewed, max_wait_s=MESH_WAIT_S)
+    got = path("engine_step", lambda: mesh_requests(
+        np, eng, queries, docs, seed, step=True))
+    eng.close()
+    arrays.update({f"engine_step_{k}": v for k, v in got.items()})
+    rt = ReplicaRouter(index, config=RouterConfig(
+        num_replicas=ROUTER_REPLICAS, engine=EngineConfig(max_batch=8)),
+        sessions=sessions())
+    open_all(rt)
+    got = path("router", lambda: mesh_requests(np, rt, queries, docs, seed))
+    info["router_slices"] = rt.summary()["slices"]
+    rt.close()
+    arrays.update({f"router_{k}": v for k, v in got.items()
+                   if k != "scores"})
+    shard_docs = index.num_rows // NUM_SHARDS
+    shard_bytes = (shard_docs * params.num_chunks(index.dim)
+                   * params.num_primes * params.n_poly * 4)
+    ccfg = rlwe.CandidateCacheConfig(
+        num_shards=NUM_SHARDS, async_admission=False,
+        max_resident_bytes=MESH_PIN_SHARDS * shard_bytes)
+    eng = engine(cache_config=ccfg)
+    reset_peak(torch, info)
+    got = path("engine_sharded", lambda: mesh_requests(np, eng, queries,
+                                                       docs, seed))
+    cache = index.peek_candidate_cache(params, ccfg)
+    st = cache.stats()
+    info["cache"] = dict(
+        placed=cache.placement is not None, shard_docs=shard_docs,
+        shard_bytes=shard_bytes, row_bytes=shard_bytes // shard_docs,
+        **{k: st[k] for k in ("resident_bytes", "device_resident_bytes",
+                              "peak_resident_bytes", "row_parts", "hits",
+                              "misses", "admissions", "evictions")},
+        resident_shards=len(st["resident_shards"]),
+        device_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    eng.close()
+    arrays.update({f"engine_sharded_{k}": v for k, v in got.items()})
+
+
+def gpipe_model(torch, cfg, seed: int):
+    """A `Transformer` of ``cfg`` drawn on the card from a seeded CUDA
+    generator (the same bits in every process), trainable."""
+    from repro_torch.models.transformer import Transformer
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return Transformer(cfg, generator=gen, device="cuda").requires_grad_(True)
+
+
+def gpipe_tokens(torch, np, vocab: int, seed: int) -> tuple:
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, vocab, size=(GPIPE_BATCH, GPIPE_SEQ + 1))
+    t = torch.from_numpy(t).cuda()
+    return t[:, :-1].contiguous(), t[:, 1:].contiguous()
+
+
+def mesh_gpipe(torch, np, cfg: dict, rank: int, info: dict, path,
+               barrier) -> None:
+    """GPipe on TRAIN_ARCH at every published width over MESH_SHAPE named
+    GPIPE_AXES (see `mesh_phase`); results into ``info``."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as tf
+
+    mesh = mesh_lib.make_mesh(MESH_SHAPE, GPIPE_AXES, device="cuda",
+                              backend="gloo")
+    base = dataclasses.replace(registry.get(TRAIN_ARCH).config, tp=1,
+                               batch_axes=("data",))
+    # -- parity: float32, one layer a stage, against one process ----------
+    pcfg = dataclasses.replace(base, n_layers=GPIPE_PARITY_LAYERS,
+                               dtype="float32", remat=False)
+    model = gpipe_model(torch, pcfg, cfg["seed"])
+    tokens, targets = gpipe_tokens(torch, np, pcfg.vocab, cfg["seed"])
+    own = tf._stage_range(pcfg, mesh, "pod")
+    mine = lambda name: (not name.startswith("layers.")
+                         or int(name.split(".")[1]) in own)
+    ref = {}
+    t0 = time.perf_counter()
+    for r in range(MESH_WORLD):         # one rank at a time holds the graph
+        barrier()
+        if r == rank:
+            loss = model.loss(tokens, targets)
+            loss.backward()
+            loss_ref = float(loss.detach())
+            for name, p in model.named_parameters():
+                if mine(name):
+                    ref[name] = p.grad.cpu()
+                p.grad = None
+            del loss
+            torch.cuda.empty_cache()
+    barrier()
+    one_s = time.perf_counter() - t0
+    tf.pipeline_stage(model, mesh, "pod")
+    reset_peak(torch, info)
+
+    def parity():
+        loss = tf.pipeline_loss(model, tokens, targets, mesh=mesh,
+                                n_micro=GPIPE_MICRO)
+        loss.backward()
+        return float(loss.detach())
+
+    loss = path("gpipe_parity", parity)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    errs = {}
+    for name, p in model.named_parameters():
+        if name.startswith("layers."):
+            i, rest = name[len("layers."):].split(".", 1)
+            name = f"layers.{own[int(i)]}.{rest}"
+        want = ref.pop(name).cuda()
+        errs[name] = float((p.grad - want).norm() / want.norm())
+        del want
+    check(not ref, f"gpipe rank {rank}: no gradient for {sorted(ref)[:3]}")
+    info["gpipe"] = dict(parity=dict(
+        layers=GPIPE_PARITY_LAYERS, loss=loss, loss_one_process=loss_ref,
+        loss_rel_err=abs(loss - loss_ref) / abs(loss_ref),
+        grad_rel_err_max=max(errs.values()),
+        worst=max(errs, key=errs.get), params=len(errs),
+        one_process_s=one_s, device_peak_gb=peak_gb))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- timed: bf16, two layers a stage, remat ----------------------------
+    bcfg = dataclasses.replace(base, n_layers=GPIPE_LAYERS)
+    model = tf.pipeline_stage(gpipe_model(torch, bcfg, cfg["seed"]), mesh,
+                              "pod")
+    comms = mesh.repro_comms
+    hops = dict(calls=0, wall_s=0.0, bytes=0, copies=0, copy_bytes=0)
+    real_hop = mesh_lib._send_hop
+
+    def timed_hop(t, *a):
+        # a rank issues its collectives from one thread at a time, so the
+        # host copies made during this call are the hop's own
+        c0, b0 = comms.host_copies, comms.host_bytes
+        t0 = time.perf_counter()
+        out = real_hop(t, *a)
+        hops["calls"] += 1
+        hops["wall_s"] += time.perf_counter() - t0
+        hops["bytes"] += t.numel() * t.element_size()
+        hops["copies"] += comms.host_copies - c0
+        hops["copy_bytes"] += comms.host_bytes - b0
+        return out
+
+    def step():
+        loss = tf.pipeline_loss(model, tokens, targets, mesh=mesh,
+                                n_micro=GPIPE_MICRO)
+        loss.backward()
+        for p in model.parameters():
+            p.grad = None
+        return float(loss.detach())
+
+    copies = comms.host_copies, comms.host_bytes
+    mesh_lib._send_hop = timed_hop
+    reset_peak(torch, info)
+    try:
+        walls = path("gpipe_bf16", lambda: walls_ms(
+            torch, step, GPIPE_STEPS, barrier, warmup=GPIPE_WARMUP))
+    finally:
+        mesh_lib._send_hop = real_hop
+    n = len(walls) + GPIPE_WARMUP          # every step's hops are counted
+    s = mesh_lib.axes_size(mesh, ("pod",))
+    info["gpipe"]["bf16"] = dict(
+        layers=GPIPE_LAYERS, stages=s, micro=GPIPE_MICRO,
+        tokens=GPIPE_BATCH * GPIPE_SEQ, step_ms=walls,
+        bubble_share=(s - 1) / (GPIPE_MICRO + s - 1),
+        ppermute_calls_per_step=hops["calls"] / n,
+        ppermute_ms_per_step=hops["wall_s"] * 1e3 / n,
+        ppermute_bytes_per_step=hops["bytes"] / n,
+        ppermute_host_copies_per_step=hops["copies"] / n,
+        ppermute_host_bytes_per_step=hops["copy_bytes"] / n,
+        # the rest: the closing broadcast, the gradient and the loss
+        # all-reduces
+        all_reduce_host_copies_per_step=(
+            comms.host_copies - copies[0] - hops["copies"]) / n,
+        all_reduce_host_bytes_per_step=(
+            comms.host_bytes - copies[1] - hops["copy_bytes"]) / n,
+        device_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sharded_step(torch, step_fn, full_state, mesh, specs):
+    """``step_fn`` of a one-process run as a step over this rank's slices
+    under ``specs``: gather them into ``full_state``, step, keep the new
+    state's slices (collective).  The drill's stand-in for a sharded
+    trainer: the arithmetic is the one-process step's on every mesh."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import checkpoint as ckpt
+
+    by_path = ckpt._spec_paths(specs)
+
+    def run(local, batch):
+        with torch.no_grad():
+            for (p, full), (_, loc) in zip(ckpt._flatten(full_state),
+                                           ckpt._flatten(local)):
+                full.copy_(mesh_lib.gather_full(loc, mesh, by_path[p]))
+        new, metrics = step_fn(full_state, batch)
+        return ckpt.shard_state(new, mesh, specs), metrics
+
+    return run
+
+
+def mesh_reshard(torch, np, wd: Path, rank: int, info: dict, path) -> None:
+    """The re-sharding drill at config_100m (see `mesh_phase`); results
+    into ``info``."""
+    from repro_torch.examples.train_lm import config_100m
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.train import make_lm_run
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import fault
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = config_100m()
+    a = mesh_lib.make_mesh(MESH_SHAPE, MESH_AXES, device="cuda",
+                           backend="gloo")
+    b = mesh_lib.make_mesh((MESH_WORLD,), ("data",), device="cuda",
+                           backend="gloo")
+    specs = lambda axes: (tf.fsdp_param_specs(cfg, axes),
+                          opt_lib.state_specs(tf.fsdp_param_specs(cfg, axes)))
+    spec_a, spec_b = specs(MESH_AXES), specs(("data",))
+    leaves = lambda st: [t for _, t in ckpt._flatten(st)]
+    run = lambda: make_lm_run(cfg, batch=DRILL_BATCH, seq=RESHARD_SEQ,
+                              lr=3e-3, steps=RESHARD_STEPS, device="cuda",
+                              seed=0)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        # two steps in one process; saved on (2, 2), restored on (4,)
+        step_fn, batches_fn, full = run()
+        for i in range(2):
+            full, _ = step_fn(full, batches_fn(i))
+
+        def save_restore():
+            ckpt.save(wd / "reshard_ck", 1, ckpt.shard_state(full, a, spec_a),
+                      mesh=a, specs=spec_a)
+            example = ckpt.shard_state(full, b, spec_b)
+            for t in leaves(example):
+                t.zero_()
+            return ckpt.restore(wd / "reshard_ck", 1, example, mesh=b,
+                                specs=spec_b)
+
+        got = path("reshard_restore", save_restore)
+        want = ckpt.shard_state(full, b, spec_b)
+        restored = all(torch.equal(x, y)
+                       for x, y in zip(leaves(got), leaves(want)))
+        del full, got, want, step_fn
+        # a run sharded on (2, 2) dies; it resumes on (4,)
+        rr = fault.ResumableRun(str(wd / "reshard_run"),
+                                checkpoint_every=RESHARD_EVERY)
+        injector = fault.FailureInjector(fail_at_steps=(RESHARD_FAIL,))
+
+        def drill():
+            step_fn, batches_fn, state = run()
+            try:
+                rr.run(sharded_step(torch, step_fn, state, a, spec_a),
+                       ckpt.shard_state(state, a, spec_a), batches_fn,
+                       RESHARD_STEPS, injector=injector, mesh=a,
+                       state_specs=spec_a)
+                died = False
+            except fault.InjectedFailure:
+                died = True
+            del step_fn, state
+            step_fn, batches_fn, state = run()
+            out = rr.run(sharded_step(torch, step_fn, state, b, spec_b),
+                         ckpt.shard_state(state, b, spec_b), batches_fn,
+                         RESHARD_STEPS, injector=injector, mesh=b,
+                         state_specs=spec_b)
+            return died, out
+
+        t0 = time.perf_counter()
+        died, (resumed, done, _) = path("reshard_drill", drill)
+        drill_s = time.perf_counter() - t0
+        step_fn, batches_fn, state = run()
+        for i in range(RESHARD_STEPS):
+            state, _ = step_fn(state, batches_fn(i))
+        same = all(torch.equal(x, y) for x, y in zip(
+            leaves(resumed), leaves(ckpt.shard_state(state, b, spec_b))))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    info["reshard"] = dict(
+        arch=cfg.name, restored_bit_identical=restored, died=died,
+        resumed_steps=done, resumed_bit_identical=same, drill_s=drill_s,
+        leaves=len(leaves(resumed)))
+    del resumed, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+MESH_SERVING_PATHS = ("engine_drain", "engine_step", "router",
+                      "engine_sharded")
+MESH_TRAINING_PATHS = ("gpipe_parity", "gpipe_bf16", "reshard_restore",
+                       "reshard_drill")
+
+
+def mesh_serving_checks(np, infos: list, arrays: list, single: dict) -> tuple:
+    """Every rank's engine (drained and stepped), router and row-sharded
+    cache runs against the one-process engine; every kernel of the serving
+    path launched on every rank.  Returns the (engine, router, cache)
+    lines' dicts."""
+    sizes0 = arrays[0]["engine_step_sizes"]
+    for r, (info, arr) in enumerate(zip(infos, arrays)):
+        for run in MESH_SERVING_PATHS:
+            for key in ("ids", "bytes", "rids"):
+                check(np.array_equal(arr[f"{run}_{key}"], single[key]),
+                      f"mesh rank {r} {run}: {key} differ from one process")
+            if run != "router":
+                check(np.array_equal(arr[f"{run}_scores"], single["scores"]),
+                      f"mesh rank {r} {run}: decrypted scores differ from "
+                      f"one process")
+            path_launches(f"mesh rank {r} {run}", info[run]["launches"])
+        check(np.array_equal(arr["engine_step_sizes"], sizes0),
+              f"mesh rank {r}: stepped batches differ from the first "
+              f"rank's")
+        c = info["cache"]
+        check(c["placed"] and c["row_parts"] == MESH_WORLD
+              and c["resident_shards"] >= 2,
+              f"mesh rank {r}: cache placement {c}")
+        check(c["device_resident_bytes"] * MESH_WORLD == c["resident_bytes"]
+              and c["device_resident_bytes"] <= c["peak_resident_bytes"]
+              / MESH_WORLD + c["row_bytes"],
+              f"mesh rank {r}: resident bytes {c}")
+    med = lambda xs: statistics.median(xs)
+    walls = lambda run: [i[run]["wall_ms"] for i in infos]
+    engine = dict(requests=MESH_REQUESTS, tenants=TENANTS,
+                  equal_to_one_process=True,
+                  drain_ms=walls("engine_drain"), step_ms=walls("engine_step"),
+                  step_batch_sizes=sorted(collections.Counter(
+                      sizes0.tolist()).items()),
+                  max_wait_s=MESH_WAIT_S,
+                  launches_rank0=infos[0]["engine_drain"]["launches"],
+                  host_copies=[i["engine_drain"]["host_copies"]
+                               for i in infos])
+    router = dict(replicas=ROUTER_REPLICAS, slices=infos[0]["router_slices"],
+                  equal_to_one_process=True, wall_ms=walls("router"),
+                  launches_rank0=infos[0]["router"]["launches"])
+    cache = dict(num_shards=NUM_SHARDS, pinned_budget_shards=MESH_PIN_SHARDS,
+                 scores_equal_dense=True, wall_ms=walls("engine_sharded"),
+                 ranks=[i["cache"] for i in infos],
+                 median_device_peak_gb=med([i["cache"]["device_peak_gb"]
+                                            for i in infos]))
+    return engine, router, cache
+
+
+def mesh_training_checks(infos: list) -> tuple:
+    """GPipe parity within the training tolerances and the re-sharding
+    drill bit for bit on every rank; no kernel of ours launched.  Returns
+    the (gpipe, reshard) lines' dicts."""
+    for r, info in enumerate(infos):
+        g = info["gpipe"]["parity"]
+        check(g["loss_rel_err"] <= TRAIN_LOSS_RTOL,
+              f"mesh rank {r}: GPipe loss {g['loss']} vs one process "
+              f"{g['loss_one_process']}")
+        check(g["grad_rel_err_max"] <= TRAIN_GRAD_RTOL,
+              f"mesh rank {r}: GPipe gradient {g['worst']} off by "
+              f"{g['grad_rel_err_max']} normwise")
+        d = info["reshard"]
+        check(d["restored_bit_identical"] and d["died"]
+              and d["resumed_bit_identical"]
+              and d["resumed_steps"] == RESHARD_STEPS - RESHARD_FAIL,
+              f"mesh rank {r}: re-sharding drill {d}")
+        for run in MESH_TRAINING_PATHS:
+            lm_path(f"mesh rank {r} {run}", info[run]["launches"])
+    gpipe = dict(arch=TRAIN_ARCH, axes=list(GPIPE_AXES),
+                 shape=list(MESH_SHAPE), batch=GPIPE_BATCH, seq=GPIPE_SEQ,
+                 micro=GPIPE_MICRO,
+                 parity=[i["gpipe"]["parity"] for i in infos],
+                 bf16=[i["gpipe"]["bf16"] for i in infos])
+    reshard = dict(saved_on=list(MESH_SHAPE), resumed_on=[MESH_WORLD],
+                   steps=RESHARD_STEPS, fail_at=RESHARD_FAIL,
+                   checkpoint_every=RESHARD_EVERY, batch=DRILL_BATCH,
+                   seq=RESHARD_SEQ, ranks=[i["reshard"] for i in infos],
+                   walls_ms={run: [i[run]["wall_ms"] for i in infos]
+                             for run in ("reshard_restore",
+                                         "reshard_drill")})
+    return gpipe, reshard
+
+
+def reshard_one_process(torch, wd: Path) -> dict:
+    """The re-sharding drill's checkpoint (saved on MESH_SHAPE) restored in
+    one process must equal the same two steps run here, bit for bit."""
+    from repro_torch.examples.train_lm import config_100m
+    from repro_torch.launch.train import make_lm_run
+    from repro_torch.train import checkpoint as ckpt
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        step_fn, batches_fn, full = make_lm_run(
+            config_100m(), batch=DRILL_BATCH, seq=RESHARD_SEQ, lr=3e-3,
+            steps=RESHARD_STEPS, device="cuda", seed=0)
+        for i in range(2):
+            full, _ = step_fn(full, batches_fn(i))
+        leaves = [t for _, t in ckpt._flatten(full)]
+        example = ckpt._unflatten(full, iter(
+            [torch.zeros_like(t) for t in leaves]))
+        got = ckpt.restore(wd / "reshard_ck", 1, example)
+        same = all(torch.equal(x, y) for x, y in zip(
+            [t for _, t in ckpt._flatten(got)], leaves))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    check(same, "mesh re-sharding: the checkpoint restored in one process "
+                "differs from the one-process state")
+    del step_fn, full, got, example, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(bit_identical=True)
 
 
 def so_mtime() -> float:
@@ -3035,7 +3593,12 @@ def mesh_phase(torch, np, args, first: dict) -> tuple:
     wire bytes); the MoE layer of LM_ARCH at its published width (tokens
     over "data", experts over "model"), float32 within 1e-5 of the einsum
     layer in one process (relative to its largest output), then timed in
-    bf16.  Returns (phase dict, [(path, launches, shapes)])."""
+    bf16; the engine, the router and the row-sharded cache over the
+    round's mesh index against the one-process engine (`mesh_serving`);
+    GPipe (`mesh_gpipe`) and the re-sharding drill (`mesh_reshard`).
+    Returns (phase dict, [(path, launches, shapes)]); the phase dict's
+    ``engine``, ``router``, ``cache``, ``gpipe`` and ``reshard`` entries
+    print as lines of their own."""
     import torch.multiprocessing as mp
 
     from repro_torch.core import planner
@@ -3045,6 +3608,7 @@ def mesh_phase(torch, np, args, first: dict) -> tuple:
     from repro_torch.models import moe as moe_lib
     from repro_torch.retrieval.index import FlatIndex
     from repro_torch.retrieval.topk import distributed_topk
+    from repro_torch.serve import EngineConfig, ServeEngine, SessionManager
 
     cfg = paper()
     wd = mesh_dir()                 # holds the flat phases' corpus.npy
@@ -3097,7 +3661,13 @@ def mesh_phase(torch, np, args, first: dict) -> tuple:
         plan = planner.plan(n=cfg.DIM, N=n_docs, k=cfg.K, kprime=cfg.KPRIME)
         single = mesh_round(torch, np, index, docs, queries, plan, cfg.RLWE,
                             args.seed, args.seed * 1000 + 17)
-        del index
+        eng = ServeEngine(index, config=EngineConfig(max_batch=8),
+                          sessions=SessionManager(rlwe_params=cfg.RLWE,
+                                                  deterministic_seeds=True))
+        open_tenants(eng, cfg.DIM, n_docs, cfg.K, cfg.KPRIME)
+        single_serve = mesh_requests(np, eng, queries, docs, args.seed)
+        eng.close()
+        del index, eng
         gc.collect()
         torch.cuda.empty_cache()
         spec = moe_layer_spec()
@@ -3132,6 +3702,7 @@ def mesh_phase(torch, np, args, first: dict) -> tuple:
                  for r in range(MESH_WORLD)]
         arrays = [dict(np.load(wd / f"rank{r}.npz"))
                   for r in range(MESH_WORLD)]
+        out["reshard_one_process"] = reshard_one_process(torch, wd)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
 
@@ -3161,7 +3732,10 @@ def mesh_phase(torch, np, args, first: dict) -> tuple:
         lm_path(f"mesh rank {r} moe", info["moe_f32"]["launches"])
     check(moe_err <= 1e-5 * scale,
           f"mesh MoE off by {moe_err} (largest output {scale})")
-    for part in ("first_stage", "round", "moe_f32"):
+    serving = mesh_serving_checks(np, infos, arrays, single_serve)
+    gpipe, reshard = mesh_training_checks(infos)
+    for part in ("first_stage", "round", "moe_f32") + MESH_SERVING_PATHS \
+            + MESH_TRAINING_PATHS:
         total = collections.Counter()
         shapes = []
         for info in infos:
@@ -3187,6 +3761,9 @@ def mesh_phase(torch, np, args, first: dict) -> tuple:
             **{part: {k: v for k, v in i[part].items() if k != "shapes"}
                for part in ("first_stage", "round", "moe_f32")})
             for i in infos])
+    out["engine"], out["router"], out["cache"] = serving
+    out["gpipe"], out["reshard"] = gpipe, dict(
+        reshard, one_process=out.pop("reshard_one_process"))
     return out, paths
 
 
@@ -3390,8 +3967,12 @@ def main(argv=None) -> int:
     emit({"phase": "lm", "phase_s": lm_s, "memory": pk_lm.result, **lm})
     emit({"phase": "train", "phase_s": train_s, "memory": pk_train.result,
           **train})
+    items = {key: mesh.pop(key)
+             for key in ("engine", "router", "cache", "gpipe", "reshard")}
     emit({"phase": "mesh", "phase_s": mesh_s, "memory": pk_mesh.result,
           **mesh})
+    for key, item in items.items():
+        emit({"phase": f"mesh_{key}", **item})
     emit({"phase": "summary", "build_s": build_s,
           "host_max_rss_gb": resource.getrusage(
               resource.RUSAGE_SELF).ru_maxrss / 1e6,

@@ -2,10 +2,10 @@
 
 Counterpart of ``repro/configs/registry.py`` for what the port runs: the
 five LMs and the RemoteRAG service config.  `ArchEntry` has no
-``build_cell``: the reference's cell builders (``families.py``) lower a
-step onto a device mesh and wait for the multi-device slice (ROADMAP
-queue 1, item 2); the GNN and recsys entries come with their models
-(ROADMAP queue 1, item 3).
+``build_cell``: the reference's cell functions (``configs/families.py``)
+come with the port of that module and of ``launch/dryrun.py`` (ROADMAP
+queue 1, "Cells and the dry run"); the GNN and recsys entries come with
+their models (ROADMAP queue 1, "GNN and recsys models").
 """
 
 from __future__ import annotations

@@ -111,16 +111,20 @@ class RemoteRagCloud:
     the device, per-request gather of the k' selected rows).
     ``use_candidate_cache=False`` packs the candidates per request instead
     (the cold path).  All three are bit-identical.  A Paillier-only cloud
-    never builds the cache."""
+    never builds the cache.  Over a mesh index, ``mesh`` (a
+    `launch.mesh.fork` of the index's mesh; default the index's own) is
+    the mesh its cache gathers run on."""
 
     def __init__(self, index: FlatIndex, *,
                  rlwe_params: Optional[rlwe.RlweParams] = None,
                  use_candidate_cache: bool = True,
-                 cache_config: Optional[rlwe.CandidateCacheConfig] = None):
+                 cache_config: Optional[rlwe.CandidateCacheConfig] = None,
+                 mesh=None):
         self.index = index
         self.rlwe_params = rlwe_params or rlwe.RlweParams()
         self.use_candidate_cache = use_candidate_cache
         self.cache_config = cache_config
+        self.mesh = index.mesh if mesh is None else mesh
 
     @property
     def device(self) -> torch.device:

@@ -126,7 +126,8 @@ class RlweBackend(CryptoBackend):
         cache = cloud.candidate_cache
         if cache is not None:
             return rlwe.encrypted_scores_cached(
-                cloud.rlwe_params, req.enc_query, cache, cand_ids)
+                cloud.rlwe_params, req.enc_query, cache, cand_ids,
+                mesh=cloud.mesh)
         packed = rlwe.pack_candidates(cloud.rlwe_params,
                                       cloud.index.rows(cand_ids))
         return rlwe.encrypted_scores(cloud.rlwe_params, req.enc_query, packed)
@@ -138,7 +139,8 @@ class RlweBackend(CryptoBackend):
                          params, cache):
         if cache is not None:
             return rlwe.encrypted_scores_cached_batch(params, enc, cache,
-                                                      cand_ids)
+                                                      cand_ids,
+                                                      mesh=cloud.mesh)
         cand_rows = cloud.index.rows(cand_ids).reshape(len(users), kprime, -1)
         packed = rlwe.pack_candidates_batch(params, cand_rows)
         return rlwe.encrypted_scores_batch_stacked(

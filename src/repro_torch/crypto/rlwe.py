@@ -36,6 +36,7 @@ from repro_torch.crypto import modring
 from repro_torch.crypto.modring import PrimeCtx
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ntt import ops as ntt_ops
+from repro_torch.launch import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -621,6 +622,20 @@ class ShardedCandidateCache:
     the lock in one step, so a concurrent gather sees the shard table
     before it or after it, never between, and enqueues the tail to the
     same admitter.
+
+    Row-sharded pinned shards (``placement`` = (mesh, row axes), from
+    `FlatIndex.shard_placement`): a rank's device copy of a pinned shard is
+    its ``shard_docs / n`` rows at its position over the row axes, so its
+    device holds 1/n of every resident shard while ``max_resident_bytes``,
+    ``resident_bytes`` and ``peak_resident_bytes`` keep counting whole
+    shards (the same shards are admitted as without the placement;
+    ``device_resident_bytes`` is what this rank holds).  Each row of a
+    shard has one owner position; a `gather` fills the selected rows this
+    rank owns, from its resident part or from the host pool (whole on every
+    rank), leaves the others zero, and one int32 all-reduce sum over the
+    row axes assembles them exactly.  Every rank issues that collective on
+    every gather, and what it exchanges depends on the ids alone, never on
+    residency or the admitter's timing.
     """
     params: RlweParams
     twiddles: torch.Tensor         # (P, cpt, N) — same as the dense cache
@@ -639,6 +654,7 @@ class ShardedCandidateCache:
     admit_threshold: int = 2
     admit_window: int = 64
     max_pending_admissions: int = 4
+    placement: Optional[tuple] = None     # (mesh, row axes): row-sharded pins
     _resident: collections.OrderedDict = dataclasses.field(
         default_factory=collections.OrderedDict, repr=False)
     hits: int = 0
@@ -680,6 +696,18 @@ class ShardedCandidateCache:
         # telemetry sink, re-bound by the serving engine every dispatch
         self.tracer = obs.NULL_TRACER
         self._trace_batch: Optional[int] = None
+        # row-sharded pinned shards: this rank's rows [pos, pos + 1) * part
+        self._parts, self._pos = 1, 0
+        if self.placement is not None:
+            mesh, axes = self.placement
+            self._parts = mesh_lib.axes_size(mesh, axes)
+            self._pos = mesh_lib.axes_position(mesh, axes)
+            if any(sh.shape[0] != self.shard_docs for sh in self.shards) \
+                    or self.shard_docs % self._parts:
+                raise ValueError(
+                    f"a row-sharded placement needs whole shards of "
+                    f"shard_docs={self.shard_docs} docs that split over "
+                    f"{self._parts} ranks")
 
     def set_trace_context(self, tracer, batch_id: Optional[int]) -> None:
         """Bind the tracer + current batch id for spans this cache emits
@@ -711,7 +739,16 @@ class ShardedCandidateCache:
         return np.concatenate(shards, axis=0)
 
     def _resident_bytes_locked(self) -> int:
-        return sum(v.numel() * 4 for v in self._resident.values())
+        """Whole-shard bytes of the resident set (the budget's unit)."""
+        return sum(self.shards[s].nbytes for s in self._resident)
+
+    @property
+    def device_resident_bytes(self) -> int:
+        """Bytes this rank's device holds for the resident set (1/n of
+        `resident_bytes` under a row-sharded placement)."""
+        with self._lock:
+            return sum(v.numel() * v.element_size()
+                       for v in self._resident.values())
 
     @property
     def resident_bytes(self) -> int:
@@ -730,10 +767,13 @@ class ShardedCandidateCache:
             resident_bytes = self._resident_bytes_locked()
             resident_shards = tuple(self._resident.keys())
             pending = len(self._inflight)
+        device_bytes = self.device_resident_bytes
         return {"hits": self.hits, "misses": self.misses,
                 "evictions": self.evictions,
                 "gathered_bytes": self.gathered_bytes,
                 "resident_bytes": resident_bytes,
+                "device_resident_bytes": device_bytes,
+                "row_parts": self._parts,
                 "peak_resident_bytes": self.peak_resident_bytes,
                 "pool_bytes": self.pool_nbytes,
                 "num_shards": self.num_shards,
@@ -802,14 +842,23 @@ class ShardedCandidateCache:
         self.peak_resident_bytes = max(self.peak_resident_bytes,
                                        self._resident_bytes_locked())
 
+    def _part_rows(self) -> int:
+        """Rows of a shard one rank holds (all of them without placement)."""
+        return self.shard_docs // self._parts
+
     def _stage_copy(self, s: int, stream=None) -> torch.Tensor:
-        """A complete device copy of shard ``s``: allocated and copied on
+        """A complete device copy of shard ``s`` (under a row-sharded
+        placement: of this rank's rows of it), allocated and copied on
         ``stream`` (the current stream when None), finished before return."""
+        src = self.shards[s]
+        if self.placement is not None:
+            part = self._part_rows()
+            src = src[self._pos * part:(self._pos + 1) * part]
         if self.device.type == "cpu":
-            return _host_to_device(self.shards[s], self.device)
+            return _host_to_device(src, self.device)
         stream = stream or torch.cuda.current_stream(self.device)
         with torch.cuda.stream(stream):
-            arr = _host_to_device(self.shards[s], self.device)
+            arr = _host_to_device(src, self.device)
             done = torch.cuda.Event()
             done.record(stream)
         done.synchronize()
@@ -1026,7 +1075,7 @@ class ShardedCandidateCache:
         torch.index_select(src, 0, idx, out=buf)
         return buf.to(self.device, non_blocking=True)
 
-    def gather(self, ids) -> torch.Tensor:
+    def gather(self, ids, *, mesh=None) -> torch.Tensor:
         """On-demand gather of the selected candidates' cached rows:
         (B, num_cands) document ids -> (B, num_cands, chunks, P, N) on the
         cache's device, touching only those documents.
@@ -1036,7 +1085,12 @@ class ShardedCandidateCache:
         from the host pool.  With ``pin_on_access`` a miss feeds the
         admission policy (synchronous first-touch LRU admission in legacy
         mode, else a counted touch that may enqueue a background admission
-        — the gather itself never waits on the copy)."""
+        — the gather itself never waits on the copy).  Under a row-sharded
+        placement this rank reads only the selected rows it owns and one
+        all-reduce over the row axes assembles the rest (collective: every
+        rank of the placement calls it with the same ids), on ``mesh`` (a
+        `launch.mesh.fork` of the placement's mesh, as each serving engine
+        passes its own; default the placement's)."""
         ids = np.asarray(ids)
         if ids.ndim != 2:
             raise ValueError(f"ids must be (B, num_cands), got {ids.shape}")
@@ -1053,12 +1107,19 @@ class ShardedCandidateCache:
         bounds = np.append(starts, order.size)
         row_shape = (self.num_chunks, self.params.num_primes,
                      self.params.n_poly)
-        out = torch.empty((flat.size,) + row_shape, dtype=torch.int32,
-                          device=self.device)
+        alloc = torch.zeros if self.placement is not None else torch.empty
+        out = alloc((flat.size,) + row_shape, dtype=torch.int32,
+                    device=self.device)
+        part = self._part_rows()
         for s, lo, hi in zip(uniq, bounds[:-1], bounds[1:]):
             s = int(s)
             sel = order[lo:hi]
             loc = local[sel]
+            if self.placement is not None:
+                # this rank's rows of the shard; the all-reduce brings the
+                # others (the policy below still sees every touched shard)
+                owned = loc // part == self._pos
+                sel, loc = sel[owned], loc[owned]
             with self._lock:                  # vs admitter swap/evict
                 dev = self._resident.get(s)
                 if dev is not None:
@@ -1072,9 +1133,13 @@ class ShardedCandidateCache:
                         self._prefetched.discard(s)   # counted at prefetch
                     else:
                         self._touch_locked(s)
+            if not sel.size:
+                continue
             if dev is not None:
+                at = loc - self._pos * part if self.placement is not None \
+                    else loc
                 rows = dev.index_select(
-                    0, torch.from_numpy(loc).to(self.device))
+                    0, torch.from_numpy(at).to(self.device))
                 if self.device.type == "cuda":
                     # an eviction frees ``dev``; its memory must not go to
                     # the next admission before this stream has read it
@@ -1084,6 +1149,10 @@ class ShardedCandidateCache:
                 rows = self._host_rows(s, loc)
                 self.gathered_bytes += rows.numel() * 4
             out.index_copy_(0, torch.from_numpy(sel).to(self.device), rows)
+        if self.placement is not None:
+            base, axes = self.placement
+            out = mesh_lib.all_reduce(out, base if mesh is None else mesh,
+                                      axes)
         out = out.reshape((bsz, nc) + row_shape)
         if tracer.enabled:
             tracer.record("cache_gather", t0, tracer.clock(),
@@ -1096,7 +1165,8 @@ class ShardedCandidateCache:
 
 def _shard_pool(params: RlweParams, pool: np.ndarray, n_dim: int,
                 config: CandidateCacheConfig, twiddles: torch.Tensor,
-                epoch: int = 0) -> ShardedCandidateCache:
+                epoch: int = 0, placement: Optional[tuple] = None
+                ) -> ShardedCandidateCache:
     num_docs = pool.shape[0]
     chunks, stride, cpt = _cache_geometry(params, n_dim)
     shard_docs = config.resolve_shard_docs(num_docs)
@@ -1112,24 +1182,28 @@ def _shard_pool(params: RlweParams, pool: np.ndarray, n_dim: int,
         async_admission=config.async_admission,
         admit_threshold=config.admit_threshold,
         admit_window=config.resolve_admit_window(len(shards)),
-        max_pending_admissions=config.max_pending_admissions)
+        max_pending_admissions=config.max_pending_admissions,
+        placement=placement)
 
 
 def build_sharded_candidate_cache(
         params: RlweParams, embeddings: torch.Tensor, *,
-        config: Optional[CandidateCacheConfig] = None
-) -> ShardedCandidateCache:
+        config: Optional[CandidateCacheConfig] = None,
+        placement: Optional[tuple] = None) -> ShardedCandidateCache:
     """Pack + forward-NTT the corpus once, on the embeddings' device, into
     a host pool, and partition it into shards (resident shards and gathers
-    live on the embeddings' device)."""
+    live on the embeddings' device); ``placement`` row-shards the pinned
+    shards (see `ShardedCandidateCache`)."""
     config = config if config is not None else CandidateCacheConfig()
     n_dim = embeddings.shape[1]
     pool = _pack_corpus_ntt(params, embeddings, host=True)
     return _shard_pool(params, pool, n_dim, config,
-                       _slot_twiddles(params, n_dim, embeddings.device))
+                       _slot_twiddles(params, n_dim, embeddings.device),
+                       placement=placement)
 
 
-def shard_candidate_cache(cache, config: Optional[CandidateCacheConfig] = None
+def shard_candidate_cache(cache, config: Optional[CandidateCacheConfig] = None,
+                          placement: Optional[tuple] = None
                           ) -> ShardedCandidateCache:
     """Re-view an existing cache's pool (dense `CandidateCache` or another
     `ShardedCandidateCache`) as a sharded cache under a new config, without
@@ -1137,7 +1211,8 @@ def shard_candidate_cache(cache, config: Optional[CandidateCacheConfig] = None
     view, and bit identity between the views holds by construction."""
     config = config if config is not None else CandidateCacheConfig()
     return _shard_pool(cache.params, cache.host_pool(), cache.n_dim, config,
-                       cache.twiddles, epoch=getattr(cache, "epoch", 0))
+                       cache.twiddles, epoch=getattr(cache, "epoch", 0),
+                       placement=placement)
 
 
 def densify_candidate_cache(cache: ShardedCandidateCache) -> CandidateCache:
@@ -1181,7 +1256,8 @@ def _scores_pipeline(c0, c1, g, cache, ctxs):
 
 def encrypted_scores_cached_batch(params: RlweParams,
                                   q_cts: Sequence[QueryCiphertext],
-                                  cache, cand_ids) -> ScoreCiphertextBatch:
+                                  cache, cand_ids, *,
+                                  mesh=None) -> ScoreCiphertextBatch:
     """Batched ct (x) p against cached NTT-domain candidates (``cache`` is a
     dense `CandidateCache` or a `ShardedCandidateCache`): one gather of k'
     cached rows per lane (device `index_select` for the dense cache, the
@@ -1189,7 +1265,8 @@ def encrypted_scores_cached_batch(params: RlweParams,
     query forward NTTs and one fused rotate -> Hadamard -> mod-sum ->
     inverse-NTT launch.  Identical pipeline below the gather for both
     kinds, so both are bit identical to `pack_candidates_batch` +
-    `encrypted_scores_batch_stacked`."""
+    `encrypted_scores_batch_stacked`.  ``mesh``: the mesh a row-sharded
+    cache's gather runs on (`ShardedCandidateCache.gather`)."""
     sharded = isinstance(cache, ShardedCandidateCache)
     if sharded:
         ids = np.asarray(cand_ids.cpu() if isinstance(cand_ids, torch.Tensor)
@@ -1204,7 +1281,7 @@ def encrypted_scores_cached_batch(params: RlweParams,
     c0 = torch.stack([q.c0 for q in q_cts])                # (B, chunks, P, N)
     c1 = torch.stack([q.c1 for q in q_cts])
     if sharded:
-        g = cache.gather(ids)                  # (B, nc, chunks, P, N)
+        g = cache.gather(ids, mesh=mesh)       # (B, nc, chunks, P, N)
     else:
         g = cache.polys.index_select(0, ids.reshape(-1)).reshape(
             (bsz, num_cands) + tuple(cache.polys.shape[1:]))
@@ -1214,12 +1291,14 @@ def encrypted_scores_cached_batch(params: RlweParams,
 
 
 def encrypted_scores_cached(params: RlweParams, q_ct: QueryCiphertext,
-                            cache, cand_ids) -> ScoreCiphertexts:
+                            cache, cand_ids, *,
+                            mesh=None) -> ScoreCiphertexts:
     """Cached ct (x) p for one query (the B=1 slice of the batch version)."""
     if isinstance(cand_ids, torch.Tensor):
         cand_ids = cand_ids.cpu().numpy()
     return encrypted_scores_cached_batch(
-        params, [q_ct], cache, np.asarray(cand_ids)[None]).lane(0)
+        params, [q_ct], cache, np.asarray(cand_ids)[None],
+        mesh=mesh).lane(0)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,25 @@ is copied to the host, reduced or gathered there, and copied back.  That is
 a transport choice fixed by the backend, never a compute fallback; the
 copies are counted in `MeshComms`.
 
+Threads: the groups of a mesh pair the calls of every rank in issue order,
+so two threads issuing collectives on one mesh at once could pair one
+thread's call on one rank with the other's on another.  `fork` gives a
+mesh groups of its own (built eagerly, on the calling thread, in the same
+order on every rank), and a collective handed the fork runs on them.  The
+serving engine takes a fork per engine and hands it to its search, its
+cache gathers and its agreements, so the replicas of a router, each
+stepping on its own thread, never pair their calls; `release` frees a
+fork's groups.  `broadcast_object` and `gather_objects` carry small host
+objects (a batch's makeup, stage outcomes) over every rank of a mesh.
+
+Faults: a collective that fails (a rank fell out, the group's timeout ran
+out) raises `MeshError`, and ranks that find they have parted ways raise
+its subclass `MeshDivergence`.  Both are fatal on every rank: a caller
+never takes one for the fault of a single request.
+
+Pipelines: `ppermute` sends a tensor one hop along a mesh axis, and its
+backward sends the cotangent back (JAX's transpose of ``ppermute``).
+
 Placements: a `ShardSpec` (the port's own small type, not DTensor's
 per-mesh-dimension ``Shard``/``Replicate`` tuple) gives, for each tensor
 dimension, the mesh axes it is split over, as the reference's
@@ -34,6 +53,7 @@ out of a full tensor and `gather_full` reassembles it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import math
@@ -74,6 +94,29 @@ def row_axes(mesh) -> tuple:
     return tuple(mesh.mesh_dim_names)
 
 
+class MeshError(RuntimeError):
+    """A collective over a mesh failed: a rank fell out or the group's
+    timeout ran out.  Fatal on every rank."""
+
+
+class MeshDivergence(MeshError):
+    """The ranks of a mesh parted ways: a step failed on some ranks and
+    not on others, or the ranks reached different steps.  Raised on every
+    rank of the parted group instead of results that would differ."""
+
+
+@contextlib.contextmanager
+def _collective(what: str):
+    """Re-raise a failure of the ``torch.distributed`` call inside as
+    `MeshError`."""
+    try:
+        yield
+    except MeshError:
+        raise
+    except Exception as e:                 # noqa: BLE001 — typed as fatal
+        raise MeshError(f"{what} failed: {type(e).__name__}: {e}") from e
+
+
 # ---------------------------------------------------------------------------
 # bring-up
 # ---------------------------------------------------------------------------
@@ -89,9 +132,10 @@ def init_ranks(backend: str, *, store_path=None, rank: Optional[int] = None,
     environment variables (``env://``)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    global _timeout
     if dist.is_initialized():
         raise RuntimeError("a process group is already running here")
-    timeout = datetime.timedelta(seconds=timeout_s)
+    timeout = _timeout = datetime.timedelta(seconds=timeout_s)
     if store_path is None:
         dist.init_process_group(backend, init_method="env://",
                                 timeout=timeout)
@@ -105,8 +149,16 @@ def init_ranks(backend: str, *, store_path=None, rank: Optional[int] = None,
     return dist.get_rank(), dist.get_world_size()
 
 
+# the world's collective timeout (`init_ranks`), given to every group this
+# module makes, so a collective that waits on a rank that never comes
+# fails within it
+_timeout: Optional[datetime.timedelta] = None
+
+
 def shutdown() -> None:
     """Tear down the process group `init_ranks` started."""
+    global _timeout
+    _timeout = None
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -120,6 +172,9 @@ class MeshComms:
     backend: str
     device: torch.device
     groups: dict = dataclasses.field(default_factory=dict)
+    # a fork's gloo group over every rank for host objects, apart from
+    # the groups that carry tensors
+    control: Optional[object] = None
     host_copies: int = 0          # device -> host and host -> device copies
     host_bytes: int = 0
     _lock: threading.Lock = dataclasses.field(default_factory=threading.Lock,
@@ -163,6 +218,56 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     return mesh
 
 
+class Fork:
+    """A mesh over the same ranks, axes and device as ``base`` (a
+    `make_mesh` mesh) that holds process groups of its own (`fork`)."""
+
+    def __init__(self, base, comms: MeshComms):
+        self.base = base
+        self.mesh = base.mesh
+        self.mesh_dim_names = base.mesh_dim_names
+        self.repro_comms = comms
+
+    def size(self, dim: int) -> int:
+        return self.base.size(dim)
+
+    def get_local_rank(self, dim: int) -> int:
+        return self.base.get_local_rank(dim)
+
+
+def fork(mesh, axes_list: Sequence = ()) -> Fork:
+    """A mesh over the same ranks and device as ``mesh`` with process groups
+    of its own: the group over every axis, a gloo group over every axis for
+    host objects, and the groups over each tuple in ``axes_list``, all
+    built now (``new_group`` is collective over the world: every rank
+    forks in the same order, on one thread).  Collectives handed the fork
+    run on its groups; `release` frees them."""
+    base = getattr(mesh, "base", mesh)
+    comms = _comms(base)
+    out = Fork(base, MeshComms(backend=comms.backend, device=comms.device))
+    _, block = axes_group(out, row_axes(base))
+    with _collective("new_group"):
+        out.repro_comms.control = dist.new_group(ranks=block, backend="gloo",
+                                                 timeout=_timeout)
+    for axes in axes_list:
+        axes_group(out, axes)
+    return out
+
+
+def release(forked: Fork) -> None:
+    """Free the process groups of ``forked`` (`fork`) once every rank has
+    reached this call (collective); the fork takes no collective after."""
+    comms = _comms(forked)
+    if comms.control is None:
+        return
+    barrier(forked)
+    groups = [got[0] for got in comms.groups.values() if got is not None]
+    for group in groups + [comms.control]:
+        dist.destroy_process_group(group)
+    comms.groups.clear()
+    comms.control = None
+
+
 def _comms(mesh) -> MeshComms:
     comms = getattr(mesh, "repro_comms", None)
     if comms is None:
@@ -195,7 +300,8 @@ def axes_position(mesh, axes) -> int:
 def axes_group(mesh, axes) -> tuple:
     """(process group over ``axes`` holding this rank, global ranks of the
     group's members in position order).  Built on first use by every rank
-    of the world, in the same order (``new_group`` is collective)."""
+    of the world, in the same order (``new_group`` is collective), as the
+    mesh's own: never a group of another mesh or fork."""
     comms = _comms(mesh)
     dims = _axis_dims(mesh, axes)
     key = tuple(dims)
@@ -207,10 +313,8 @@ def axes_group(mesh, axes) -> tuple:
     me = dist.get_rank()
     mine = None
     for block in blocks.tolist():
-        if len(dims) == 1:
-            group = mesh.get_group(dims[0]) if me in block else None
-        else:
-            group = dist.new_group(ranks=block)
+        with _collective("new_group"):
+            group = dist.new_group(ranks=block, timeout=_timeout)
         if me in block:
             mine = (group, block)
     comms.groups[key] = mine
@@ -241,7 +345,8 @@ def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     group, _ = axes_group(mesh, axes)
     buf = _to_host(comms, t.detach()).clone(
         memory_format=torch.contiguous_format)
-    dist.all_reduce(buf, op=_OPS[op], group=group)
+    with _collective("all_reduce"):
+        dist.all_reduce(buf, op=_OPS[op], group=group)
     return _back(comms, buf, t)
 
 
@@ -252,7 +357,8 @@ def all_gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     group, block = axes_group(mesh, axes)
     src = _to_host(comms, t.detach().contiguous())
     parts = [torch.empty_like(src) for _ in block]
-    dist.all_gather(parts, src, group=group)
+    with _collective("all_gather"):
+        dist.all_gather(parts, src, group=group)
     # group ranks follow global ranks; put each at its mesh position
     order = [block.index(dist.get_global_rank(group, j))
              for j in range(len(block))]
@@ -268,8 +374,85 @@ def broadcast(t: torch.Tensor, mesh) -> torch.Tensor:
     group, block = axes_group(mesh, row_axes(mesh))
     buf = _to_host(comms, t.detach()).clone(
         memory_format=torch.contiguous_format)
-    dist.broadcast(buf, src=block[0], group=group)
+    with _collective("broadcast"):
+        dist.broadcast(buf, src=block[0], group=group)
     return _back(comms, buf, t)
+
+
+def _object_group(mesh) -> tuple:
+    """(group, ranks in position order) for host objects over every rank:
+    a fork's control group, else the group of every axis."""
+    group, block = axes_group(mesh, row_axes(mesh))
+    control = _comms(mesh).control
+    return (group if control is None else control), block
+
+
+def broadcast_object(obj, mesh):
+    """The mesh's first rank's ``obj`` (picklable), on every rank."""
+    group, block = _object_group(mesh)
+    box = [obj]
+    with _collective("broadcast_object"):
+        dist.broadcast_object_list(box, src=block[0], group=group)
+    return box[0]
+
+
+def gather_objects(obj, mesh) -> list:
+    """Every rank's ``obj`` (picklable), in mesh position order."""
+    group, block = _object_group(mesh)
+    parts = [None] * len(block)
+    with _collective("gather_objects"):
+        dist.all_gather_object(parts, obj, group=group)
+    placed = [None] * len(block)
+    for j, part in enumerate(parts):
+        placed[block.index(dist.get_global_rank(group, j))] = part
+    return placed
+
+
+def barrier(mesh) -> None:
+    """Wait until every rank of the mesh has reached this call."""
+    comms = _comms(mesh)
+    all_reduce(torch.zeros(1, device=comms.device), mesh, row_axes(mesh))
+
+
+def _send_hop(t: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
+    """Send ``t`` ``shift`` positions along ``axis`` (a ring) and return
+    what arrives from ``-shift`` positions (same shape and dtype)."""
+    comms = _comms(mesh)
+    group, block = axes_group(mesh, (axis,))
+    n = len(block)
+    if n == 1:
+        return t.detach().clone()
+    pos = block.index(dist.get_rank())
+    src = _to_host(comms, t.detach().contiguous())
+    buf = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, block[(pos + shift) % n], group),
+           dist.P2POp(dist.irecv, buf, block[(pos - shift) % n], group)]
+    with _collective("ppermute"):
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return _back(comms, buf, t)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return _send_hop(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _send_hop(grad, ctx.mesh, ctx.axis, -ctx.shift), None, None, \
+            None
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, shift: int = 1):
+    """``x`` sent ``shift`` hops along mesh axis ``axis`` (a ring: position
+    p sends to p + shift and receives from p - shift, modulo the axis
+    size), as ``jax.lax.ppermute`` with the pairs ``(i, (i + shift) % n)``.
+    Differentiable: the backward sends the cotangent the reverse way.  On a
+    gloo mesh a CUDA tensor goes through host memory (counted in
+    `MeshComms`)."""
+    return _Ppermute.apply(x, mesh, axis, int(shift))
 
 
 class _AllReduceForward(torch.autograd.Function):
@@ -363,5 +546,7 @@ def gather_full(local: torch.Tensor, mesh, spec: ShardSpec) -> torch.Tensor:
 __all__ = ["BACKENDS", "production_mesh_shape", "make_production_mesh",
            "batch_axes", "row_axes", "init_ranks", "shutdown", "MeshComms",
            "make_mesh", "axes_size", "axes_position", "axes_group",
-           "all_reduce", "all_gather", "broadcast", "all_reduce_fwd",
+           "all_reduce", "all_gather", "broadcast", "broadcast_object",
+           "gather_objects", "barrier", "MeshError", "MeshDivergence",
+           "Fork", "fork", "release", "ppermute", "all_reduce_fwd",
            "all_reduce_bwd", "ShardSpec", "local_slice", "gather_full"]

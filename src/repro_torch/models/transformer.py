@@ -40,8 +40,11 @@ replicated); `shard_params` gives each rank its slices of a model, and
 A config with ``moe_impl="shard_a2a"`` and a ``mesh`` runs its MoE layers
 through `repro_torch.models.moe.moe_fwd_sharded`: each rank feeds its batch
 shard and holds its experts (`shard_params` with `expert_parallel_specs`).
-Sharded compute over the other layouts (the lowered cells) and
-``pipeline_forward`` are still to port.
+GPipe training (`pipeline_stage`, `pipeline_forward`, `pipeline_loss`,
+the reference's ``pipeline_forward`` / ``pipeline_loss_fn``) splits the
+layers into stages over a pipeline axis through
+`repro_torch.models.pipeline.pipeline_apply`.  Sharded compute over the
+other layouts (the lowered cells) is still to port.
 """
 
 from __future__ import annotations
@@ -55,10 +58,12 @@ from torch import nn
 from torch.utils import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import ShardSpec, local_slice
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import AttentionSpec
+from repro_torch.models.pipeline import pipeline_apply
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -462,6 +467,143 @@ def shard_params(model: nn.Module, mesh, specs: dict) -> nn.Module:
     return model
 
 
+# ---------------------------------------------------------------------------
+# GPipe training over a pipeline axis
+# ---------------------------------------------------------------------------
+
+def _stage_range(cfg: TransformerConfig, mesh, axis: str) -> range:
+    n_stages = mesh_lib.axes_size(mesh, (axis,))
+    if cfg.n_layers % n_stages:
+        raise ValueError(f"{cfg.n_layers} layers do not split into "
+                         f"{n_stages} stages")
+    per = cfg.n_layers // n_stages
+    stage = mesh_lib.axes_position(mesh, (axis,))
+    return range(stage * per, (stage + 1) * per)
+
+
+def pipeline_stage(model: "Transformer", mesh, axis: str = "pod"
+                   ) -> "Transformer":
+    """Keep only this rank's stage of ``model``'s layers (layers
+    ``[s·L/S, (s+1)·L/S)`` for position s of S along ``axis``), in place;
+    returns ``model``.  Embed, final norm and unembed stay on every rank."""
+    model.layers = nn.ModuleList(_stage_blocks(model, mesh, axis))
+    return model
+
+
+def _stage_blocks(model: "Transformer", mesh, axis: str) -> list:
+    """This rank's stage's `Block`s of a model holding all layers or
+    that stage's."""
+    own = _stage_range(model.cfg, mesh, axis)
+    if len(model.layers) == model.cfg.n_layers:
+        return [model.layers[i] for i in own]
+    if len(model.layers) == len(own):
+        return list(model.layers)
+    raise ValueError(f"the model holds {len(model.layers)} layers, neither "
+                     f"all nor a stage's {len(own)}")
+
+
+def _data_axes(cfg: TransformerConfig, mesh, axis: str, mb: int) -> tuple:
+    """The batch axes besides ``axis`` that split each microbatch (when
+    they divide it, as the reference's ``mb_spec``), else ()."""
+    rest = tuple(a for a in (cfg.batch_axes or ()) if a != axis)
+    if rest and mb % mesh_lib.axes_size(mesh, rest) == 0:
+        return rest
+    return ()
+
+
+def _microbatches(t: torch.Tensor, n_micro: int, mesh, data: tuple):
+    """(B, S) -> (n_micro, this rank's share of mb, S)."""
+    b, s = t.shape
+    t = t.reshape(n_micro, b // n_micro, s)
+    if not data:
+        return t
+    per = t.shape[1] // mesh_lib.axes_size(mesh, data)
+    pos = mesh_lib.axes_position(mesh, data)
+    return t[:, pos * per:(pos + 1) * per]
+
+
+def _summed_in_backward(params: dict, mesh, axes: tuple) -> dict:
+    if not axes:
+        return params
+    return {k: mesh_lib.all_reduce_bwd(p, mesh, axes)
+            for k, p in params.items()}
+
+
+def _block_call(blk: Block, params: dict, x, cfg: TransformerConfig,
+                positions) -> torch.Tensor:
+    out, _, _ = torch.func.functional_call(blk, params, (x, cfg, positions))
+    return out
+
+
+def pipeline_forward(model: "Transformer", tokens, *, mesh, n_micro: int = 8,
+                     axis: str = "pod") -> tuple:
+    """GPipe training forward (the reference's ``pipeline_forward``):
+    tokens (B, S), the same on every rank, in ``n_micro`` microbatches
+    through the stages of ``axis`` (`pipeline_apply`); each microbatch's
+    batch dim splits over the config's other batch axes when they divide
+    it, and every other axis (TP too) replicates.  Embed and unembed run
+    outside the pipeline, replicated over ``axis``.  ``model`` holds all
+    layers or this rank's stage (`pipeline_stage`).
+
+    Returns (logits (n_micro, this rank's share of mb, S, padded_vocab),
+    the split batch axes).  The parameters enter through
+    ``launch.mesh.all_reduce_bwd`` where their gradients come out partial,
+    so after a backward every rank holds the one-process gradient of every
+    parameter it holds: a stage's layers summed over the split batch axes
+    (each data rank sees its own tokens), ``embed`` over ``axis`` and those
+    axes (only stage 0 feeds it), ``final_norm`` and ``unembed`` over the
+    split batch axes (every stage computes the head of its data shard).
+    Ranks that differ in the other axes hold the same values."""
+    cfg = model.cfg
+    tokens = model._tokens(tokens)
+    b, s = tokens.shape
+    if b % n_micro:
+        raise ValueError(f"batch {b} does not split into {n_micro} "
+                         f"microbatches")
+    blocks = _stage_blocks(model, mesh, axis)
+    data = _data_axes(cfg, mesh, axis, b // n_micro)
+    embed = _summed_in_backward({"e": model.embed}, mesh, (axis,) + data)
+    head = _summed_in_backward({"norm": model.final_norm,
+                                "unembed": model.unembed}, mesh, data)
+    stage_params = [_summed_in_backward(dict(blk.named_parameters()), mesh,
+                                        data) for blk in blocks]
+    x = embed["e"][_microbatches(tokens, n_micro, mesh, data)]
+    positions = torch.arange(s, device=model.device)[None, :]
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def stage_fn(h):
+        for blk, params in zip(blocks, stage_params):
+            if remat:
+                h = checkpoint.checkpoint(_block_call, blk, params, h, cfg,
+                                          positions, use_reentrant=False)
+            else:
+                h = _block_call(blk, params, h, cfg, positions)
+        return h
+
+    out = pipeline_apply(stage_fn, x, mesh=mesh, axis=axis)
+    out = layers.rms_norm(out, head["norm"])
+    return torch.matmul(out, head["unembed"]), data
+
+
+def pipeline_loss(model: "Transformer", tokens, targets, *, mesh,
+                  n_micro: int = 8, axis: str = "pod") -> torch.Tensor:
+    """The reference's ``pipeline_loss_fn``: mean next-token NLL over every
+    token of the global batch (no MoE aux term), the same on every rank;
+    gradients as `pipeline_forward` says."""
+    logits, data = pipeline_forward(model, tokens, mesh=mesh,
+                                    n_micro=n_micro, axis=axis)
+    logits = logits.float()
+    mask = torch.arange(logits.shape[-1], device=logits.device) < \
+        model.cfg.vocab
+    logits = torch.where(mask, logits, -1e30)
+    logp = torch.log_softmax(logits, dim=-1)
+    tgt = _microbatches(model._tokens(targets), n_micro, mesh, data)
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    loss = nll.sum() / model._tokens(targets).numel()
+    return mesh_lib.all_reduce_fwd(loss, mesh, data) if data else loss
+
+
 __all__ = ["TransformerConfig", "Block", "Transformer", "abstract_params",
            "param_specs", "decode_param_specs", "fsdp_param_specs",
-           "expert_parallel_specs", "cache_specs", "shard_params"]
+           "expert_parallel_specs", "cache_specs", "shard_params",
+           "pipeline_stage", "pipeline_forward", "pipeline_loss"]

@@ -23,11 +23,17 @@ corpus and the mesh-sharded index:
     contiguous row block, the one at its linearized position over
     ``row_axes``; ranks that differ only in other axes hold the same block.
     ``rows``, ``slice_view`` and ``candidate_cache`` read the whole corpus,
-    gathered once from the blocks (collective: every rank calls them in
-    lockstep), as the reference's global array gives it.  A sharded cache
-    keeps its pinned shards whole on each rank: the reference's row-sharded
-    pinned placement (``_shard_sharding``) is still to port.  A mesh index
-    takes no ``ivf=`` and no ``ingest``, as in the reference.
+    gathered from the blocks once per index (collective: every rank makes
+    the first such call in lockstep, on one thread), as the reference's
+    global array gives it; every view and slice of the index shares that
+    one gather.  A sharded cache over a mesh index places its pinned
+    shards by the reference's ``_shard_sharding`` rule: when ``shard_docs``
+    splits evenly over ``row_axes`` and ``num_rows`` into whole shards,
+    each rank holds only its ``shard_docs / n`` rows of a pinned shard (the
+    rows at its position over ``row_axes``) and a gather assembles the
+    selected rows with one collective; otherwise the shards stay whole on
+    each rank.  A mesh index takes no ``ivf=`` and no ``ingest``, as in the
+    reference.
 
 Embeddings live on the index's device (``cuda`` unless the caller asks for
 ``cpu``; a mesh index on its mesh's device); documents stay on the host,
@@ -222,6 +228,10 @@ class CorpusView:
     # per-cluster IndexSlice memo: identity state, not value state
     _slices: dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)
+    # a mesh view's gathered rows, shared with its index and its other
+    # views (`FlatIndex.all_rows`)
+    _gathered: dict = dataclasses.field(default_factory=dict, repr=False,
+                                        compare=False)
 
     @property
     def num_rows(self) -> int:
@@ -232,11 +242,13 @@ class CorpusView:
         return self.embeddings.shape[1]
 
     def slice_view(self, start: int, stop: int) -> IndexSlice:
-        """A contiguous row-range view of this snapshot (a mesh view
-        gathers its rows: collective)."""
+        """A contiguous row-range view of this snapshot.  A mesh view
+        gathers the whole corpus on its first slice (collective) and every
+        later slice of it, or of its index, views that one gather."""
         if self.mesh is None:
             return _slice(self.embeddings, start, stop, "view")
-        return _slice(_gather_rows(self.embeddings, self.mesh, self.row_axes),
+        return _slice(_gathered_rows(self._gathered, self.embeddings,
+                                     self.mesh, self.row_axes),
                       start, stop, "view")
 
     def cluster_slice(self, c: int) -> IndexSlice:
@@ -261,6 +273,15 @@ def _num_rows(emb: torch.Tensor, mesh, row_axes) -> int:
 def _gather_rows(emb: torch.Tensor, mesh, row_axes) -> torch.Tensor:
     """Every rank's row block, in global row order (collective)."""
     return mesh_lib.all_gather(emb, mesh, row_axes).reshape(-1, emb.shape[1])
+
+
+def _gathered_rows(memo: dict, emb: torch.Tensor, mesh,
+                   row_axes) -> torch.Tensor:
+    """The corpus gathered from ``emb``'s blocks, once per ``memo``."""
+    rows = memo.get("rows")
+    if rows is None:
+        rows = memo["rows"] = _gather_rows(emb, mesh, row_axes)
+    return rows
 
 
 def _slice(emb: torch.Tensor, start: int, stop: int, what: str) -> IndexSlice:
@@ -291,9 +312,9 @@ class FlatIndex:
                                           compare=False)
     _lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
-    # a mesh index's whole corpus, gathered on first use
-    _rows: Optional[torch.Tensor] = dataclasses.field(
-        default=None, repr=False, compare=False)
+    # a mesh index's whole corpus, gathered on first use, shared by views
+    _gathered: dict = dataclasses.field(default_factory=dict, repr=False,
+                                        compare=False)
 
     def __post_init__(self):
         if self._epoch_rows is None:
@@ -317,9 +338,12 @@ class FlatIndex:
         """Current corpus epoch (0 at build; +1 per `ingest`)."""
         return self._epoch
 
-    def corpus_view(self, epoch: Optional[int] = None) -> CorpusView:
+    def corpus_view(self, epoch: Optional[int] = None, *,
+                    mesh=None) -> CorpusView:
         """Pin an immutable `CorpusView` at ``epoch`` (default: current),
-        its cluster map without the tail clusters appended later."""
+        its cluster map without the tail clusters appended later.  A mesh
+        index's view searches over ``mesh`` (a `launch.mesh.fork` of the
+        index's mesh; default the index's own)."""
         with self._lock:
             e = self._epoch if epoch is None else int(epoch)
             if not (0 <= e <= self._epoch):
@@ -329,7 +353,9 @@ class FlatIndex:
             cm = self.cluster_map
             if self.mesh is not None:       # one epoch: the whole block
                 return CorpusView(epoch=e, embeddings=self.embeddings,
-                                  mesh=self.mesh, row_axes=self.row_axes)
+                                  mesh=self.mesh if mesh is None else mesh,
+                                  row_axes=self.row_axes,
+                                  _gathered=self._gathered)
             return CorpusView(
                 epoch=e, embeddings=self.embeddings[:rows],
                 cluster_map=None if cm is None else cm.trimmed(rows))
@@ -453,10 +479,8 @@ class FlatIndex:
         them."""
         if self.mesh is None:
             return self.embeddings
-        if self._rows is None:
-            self._rows = _gather_rows(self.embeddings, self.mesh,
-                                      self.row_axes)
-        return self._rows
+        return _gathered_rows(self._gathered, self.embeddings, self.mesh,
+                              self.row_axes)
 
     def rows(self, ids) -> torch.Tensor:
         """Gather embedding rows by global id."""
@@ -481,7 +505,9 @@ class FlatIndex:
         packed pool depends only on the params value: an existing cache for
         the same params donates it, so a new config is a re-view, never a
         re-pack.  A mesh index builds either from the whole corpus on every
-        rank, as the reference's does."""
+        rank, as the reference's does (collective: every rank builds in
+        lockstep, on one thread), and a sharded cache takes the pinned
+        placement of `shard_placement`."""
         from repro_torch.crypto import rlwe
 
         pk = rlwe.params_key(rlwe_params)
@@ -496,12 +522,28 @@ class FlatIndex:
                          rlwe.build_candidate_cache(rlwe_params,
                                                     self.all_rows()))
             else:
-                cache = (rlwe.shard_candidate_cache(donor, config)
+                placement = self.shard_placement(config)
+                cache = (rlwe.shard_candidate_cache(donor, config, placement)
                          if donor is not None else
                          rlwe.build_sharded_candidate_cache(
-                             rlwe_params, self.all_rows(), config=config))
+                             rlwe_params, self.all_rows(), config=config,
+                             placement=placement))
             self._cand_caches[key] = cache
         return cache
+
+    def shard_placement(self, config) -> Optional[tuple]:
+        """(mesh, row axes) over which a pinned cache shard is row-sharded
+        under ``config``, or None (an index with no mesh, or shards that do
+        not split evenly): the reference's ``_shard_sharding`` condition,
+        ``shard_docs % n_shards == 0`` and ``num_rows % shard_docs == 0``
+        with ``n_shards`` the rank count over ``row_axes``."""
+        if self.mesh is None:
+            return None
+        shard_docs = config.resolve_shard_docs(self.num_rows)
+        n_shards = mesh_lib.axes_size(self.mesh, self.row_axes)
+        if shard_docs % n_shards or self.num_rows % shard_docs:
+            return None
+        return self.mesh, tuple(self.row_axes)
 
     def peek_candidate_cache(self, rlwe_params, config=None):
         """The memoized cache for (params value, config) if already built,

@@ -52,7 +52,12 @@ def make_sharded_topk(mesh, axes, n_rows: int, k: int, *, tile: int = 2048,
     values, ids and exactness flag, in position order; the merge keeps
     (score desc, global id asc).  ``exact`` is the AND over the ranks.
     Ranks along axes outside ``axes`` hold the same blocks and run the same
-    search."""
+    search.
+
+    A rank whose block scan raises still joins the all-gather, flagged as
+    failed: when every rank failed each re-raises its own error (a fault
+    of the request, as in one process); when only some did, every rank
+    raises `launch.mesh.MeshDivergence`."""
     axes = tuple(axes)
     n_shards = mesh_lib.axes_size(mesh, axes)
     if n_rows % n_shards:
@@ -66,13 +71,31 @@ def make_sharded_topk(mesh, axes, n_rows: int, k: int, *, tile: int = 2048,
             raise ValueError(f"shard holds {shard.shape[0]} rows, the mesh "
                              f"gives each {rows_local}")
         q = mesh_lib.broadcast(_queries(shard, queries), mesh)
-        out = sops.topk_scores(q, shard, k_local, tile=min(tile, rows_local),
-                               per_tile_k=per_tile_k)
-        gidx = out.indices + mesh_lib.axes_position(mesh, axes) * rows_local
-        # one collective: values, ids (int32 bits) and the flag side by side
-        flag = q.new_full((q.shape[0], 1), float(out.exact))
-        packed = torch.cat([out.values, gidx.view(torch.float32), flag], 1)
+        try:
+            out = sops.topk_scores(q, shard, k_local,
+                                   tile=min(tile, rows_local),
+                                   per_tile_k=per_tile_k)
+            gidx = out.indices + mesh_lib.axes_position(mesh, axes) * \
+                rows_local
+            # one collective: values, ids (int32 bits) and the flag side
+            # by side
+            flag = q.new_full((q.shape[0], 1), float(out.exact))
+            packed = torch.cat([out.values, gidx.view(torch.float32), flag],
+                               1)
+            err = None
+        except Exception as e:          # noqa: BLE001 — agreed below
+            # this rank still joins the gather, its flag saying it failed
+            packed = q.new_zeros((q.shape[0], 2 * k_local + 1))
+            packed[:, -1] = -1.0
+            err = e
         every = mesh_lib.all_gather(packed, mesh, axes)   # (n_shards, B, .)
+        failed = (every[:, :, -1] < 0).any(1).tolist()
+        if any(failed):
+            if not all(failed):
+                raise mesh_lib.MeshDivergence(
+                    f"the block scan failed on the shards at positions "
+                    f"{[p for p, f in enumerate(failed) if f]} only")
+            raise err
         vals = every[..., :k_local].contiguous()
         ids = every[..., k_local:2 * k_local].contiguous().view(torch.int32)
         mv, mi = sref.merge_tiles_ref(vals, ids, k_out)

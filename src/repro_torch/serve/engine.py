@@ -40,6 +40,37 @@ solo retry on the sequential path (`EngineConfig.max_retries`), then a
 `ServeResult` error result.  Healthy lanes complete from their
 already-computed state — they are never re-encrypted, never re-dispatched,
 and never double-counted in the metrics.
+
+Over a mesh index (``FlatIndex.build(..., mesh=)``) every rank runs the
+same engine, SPMD: the caller opens the same sessions and submits the same
+requests in the same order on every rank, and the engine keeps each
+collective's issue, order and shapes a function of what the ranks agree
+on, never of a rank's clock, thread timing, cache residency or a fault
+only it saw:
+
+  * the engine takes process groups of its own (`launch.mesh.fork`) and
+    hands them to its search (its `CorpusView`), its cache gathers (its
+    cloud) and its agreements, so the replicas of a router, each stepping
+    on its own thread, never pair their collectives; the corpus gather and
+    the candidate cache (both collective) are built at construction, on
+    the caller's thread, and `close` releases the groups;
+  * the first rank decides each batch (the group, the request ids in
+    order, the ids it sheds) and broadcasts it with the DistanceDP keys of
+    the requests whose caller fixed none; the other ranks pop exactly
+    those requests.  `drain` goes through the same decision.  With an
+    admission tier, `submit` reads the first rank's clock;
+  * a session opened without a seed under random seeds takes the first
+    rank's seed;
+  * every stage's outcome is agreed before bisection, per lane on the
+    sequential path and before each collective search, and the search
+    agrees on each rank's block scan inside its all-gather: a fault seen
+    on every rank gives the one-process quarantine results; a fault seen
+    on some ranks only raises `launch.mesh.MeshDivergence` on every rank
+    (the tenants' rng streams would otherwise part ways).  A failed
+    collective (`launch.mesh.MeshError`, e.g. a rank that died) is fatal
+    too: it is never taken for a lane fault, bisected or retried;
+  * quarantine retries run inline, in dispatch order (``retry_lane`` is
+    not used over a mesh).
 """
 
 from __future__ import annotations
@@ -59,6 +90,8 @@ from repro_torch import obs
 from repro_torch.core import protocol
 from repro_torch.crypto import backend as crypto_backends
 from repro_torch.crypto import rlwe
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.mesh import MeshDivergence
 from repro_torch.retrieval.index import FlatIndex
 from repro_torch.serve import admission as adm
 from repro_torch.serve import batching
@@ -114,7 +147,9 @@ class EngineConfig:
     # lane (a single worker thread) so a faulty lane's retry wall never
     # costs a healthy batch's p99 — retry results surface from a later
     # step()/drain(), which barriers on retry completion.  False restores
-    # the inline retry on the dispatch thread.
+    # the inline retry on the dispatch thread.  Over a mesh index retries
+    # always run inline, in dispatch order (their collectives must keep
+    # the same order on every rank).
     retry_lane: bool = True
 
 
@@ -131,6 +166,7 @@ class ServeRequest:
     priority: str = "interactive"   # admission.PRIORITIES class
     rank: int = 0                   # cached priority_rank(priority)
     deadline_s: Optional[float] = None  # SLO budget from t_enqueue
+    key_drawn: bool = False         # key drawn here (the caller fixed none)
 
 
 @dataclasses.dataclass
@@ -158,9 +194,13 @@ class ServeResult:
         return self.error is None
 
 
+def _no_agreement(stage: str, failed: Sequence[bool]) -> None:
+    """The agreement hook of an engine over no mesh: nothing to agree."""
+
+
 def _bisect_lanes(run, lanes: Sequence[int], *,
                   tracer=obs.NULL_TRACER, batch_id: Optional[int] = None,
-                  stage: str = "") -> Tuple[dict, dict]:
+                  stage: str = "", agree=_no_agreement) -> Tuple[dict, dict]:
     """Fault-attribute one batched stage.  ``run(lane_list)`` computes the
     stage for those lanes and returns one output per lane; the full set is
     tried first (the clean-path fast case — identical work to a monolithic
@@ -171,8 +211,9 @@ def _bisect_lanes(run, lanes: Sequence[int], *,
     per-request generator seeds, already-encrypted queries, and index
     state — so
     re-running a lane inside a smaller subset reproduces its bits exactly
-    and never re-encrypts anything.  Returns ({lane: output},
-    {lane: exception})."""
+    and never re-encrypts anything.  ``agree(stage, [failed])`` holds every
+    attempt's outcome to the other ranks' (a mesh engine's
+    `ServeEngine._agree`).  Returns ({lane: output}, {lane: exception})."""
     out: dict = {}
     bad: dict = {}
     pending = [list(lanes)]
@@ -181,8 +222,14 @@ def _bisect_lanes(run, lanes: Sequence[int], *,
         if not ls:
             continue
         try:
-            vals = run(ls)
+            vals, err = run(ls), None
+        except mesh_lib.MeshError:
+            raise
         except Exception as e:        # noqa: BLE001 — attribution scope
+            vals, err = None, e
+        agree(stage, [err is not None])
+        if err is not None:
+            e = err
             tracer.event("bisect", batch_id=batch_id, stage=stage,
                          subset=len(ls), error_type=type(e).__name__)
             if len(ls) == 1:
@@ -196,17 +243,37 @@ def _bisect_lanes(run, lanes: Sequence[int], *,
     return out, bad
 
 
-def _lane_stage(fn, lanes: Sequence[int]) -> Tuple[dict, dict]:
+def _lane_stage(fn, lanes: Sequence[int], *, stage: str = "",
+                agree=_no_agreement, each: bool = False) -> Tuple[dict, dict]:
     """Per-lane stage with direct attribution: ``fn(lane)`` runs in lane
-    order; a raising lane is recorded and its batchmates continue."""
+    order; a raising lane is recorded and its batchmates continue.  The
+    lanes' outcomes go through ``agree`` once after the stage, or after
+    every lane with ``each`` (a stage whose lanes issue collectives)."""
     out: dict = {}
     bad: dict = {}
     for lane in lanes:
         try:
             out[lane] = fn(lane)
+        except mesh_lib.MeshError:
+            raise
         except Exception as e:        # noqa: BLE001 — lane-isolated
             bad[lane] = e
+        if each:
+            agree(stage, [lane in bad])
+    if not each:
+        agree(stage, [lane in bad for lane in lanes])
     return out, bad
+
+
+def _plan_of(picked: dict) -> dict:
+    """The first rank's `ServeEngine._pick` as the broadcast plan: ids
+    only, and the keys this rank drew for the batch's requests."""
+    return dict(shed=[(r.request_id, r.shed_reason) for r in picked["shed"]],
+                chosen=picked["chosen"],
+                rids=[r.request_id for r in picked["batch"]],
+                keys={r.request_id: r.key for r in picked["batch"]
+                      if r.key_drawn},
+                refill=picked["refill"], leftovers=picked["leftovers"])
 
 
 class ServeEngine:
@@ -234,15 +301,19 @@ class ServeEngine:
         if self.sessions.device != self.device:
             raise ValueError(f"sessions on {self.sessions.device}, index on "
                              f"{self.device}")
+        # over a mesh index: process groups of this engine's own (see the
+        # module docstring), handed to its cloud and its view
+        self._mesh = (None if index.mesh is None
+                      else mesh_lib.fork(index.mesh, [index.row_axes]))
         self.cloud = protocol.RemoteRagCloud(
             index, rlwe_params=self.sessions.rlwe_params,
             use_candidate_cache=self.config.use_candidate_cache,
-            cache_config=self.config.cache_config)
+            cache_config=self.config.cache_config, mesh=self._mesh)
         # pin the corpus at construction: every default-path search (and
         # the epoch stamp new sessions plan against) reads this frozen
         # snapshot, so a concurrent ingest advancing the index's epoch
         # never changes what this engine serves until `refresh_corpus`
-        self.view = index.corpus_view()
+        self.view = index.corpus_view(mesh=self._mesh)
         # an explicit tracer wins (tests inject one built on a fake
         # clock); otherwise EngineConfig.trace selects a real tracer on
         # *the engine's own clock* — queue-wait spans are computed from
@@ -296,6 +367,15 @@ class ServeEngine:
         self._retry_inflight = 0
         self._retry_cv = threading.Condition(self._qlock)
         self._closed = False
+        # over a mesh index: the first rank decides, and the collective
+        # builds happen here, on this thread
+        self._first = True
+        self._agreed_seeds: Dict[str, int] = {}
+        if index.mesh is not None:
+            self._first = mesh_lib.axes_position(
+                index.mesh, mesh_lib.row_axes(index.mesh)) == 0
+            index.all_rows()
+            self.cloud.candidate_cache
 
     def refresh_corpus(self, epoch: Optional[int] = None):
         """Advance (or pin) this engine's corpus view to ``epoch`` (default:
@@ -305,7 +385,7 @@ class ServeEngine:
         an old plan's Theorem-1 bound stays valid for the rows it was
         planned over).  Call between batches: an engine mid-dispatch keeps
         scanning the view it started with."""
-        self.view = self.cloud.index.corpus_view(epoch)
+        self.view = self.cloud.index.corpus_view(epoch, mesh=self._mesh)
         return self.view
 
     # -- session + queue ----------------------------------------------------
@@ -315,6 +395,15 @@ class ServeEngine:
         # against (see serve.session.PlanCache); callers may still pin an
         # explicit epoch for replay setups
         session_kwargs.setdefault("epoch", self.view.epoch)
+        if (self._mesh is not None and session_kwargs.get("seed") is None
+                and not self.sessions.deterministic_seeds):
+            # every rank must hold the tenant's keys: the first rank's seed
+            seed = self._agreed_seeds.get(tenant)
+            if seed is None:
+                seed = self._agreed_seeds[tenant] = \
+                    mesh_lib.broadcast_object(secrets.randbits(63),
+                                              self._mesh)
+            session_kwargs["seed"] = seed
         return self.sessions.open(tenant, **session_kwargs)
 
     def submit(self, tenant: str, embedding: np.ndarray,
@@ -363,6 +452,9 @@ class ServeEngine:
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         now = self._clock()
+        if self._mesh is not None and self.admission is not None:
+            # rate limits and displacement read the first rank's clock
+            now = mesh_lib.broadcast_object(now, self._mesh)
         with self._qlock:
             if self.admission is not None:
                 retry = self.admission.check_rate(tenant, now)
@@ -386,7 +478,8 @@ class ServeEngine:
             if self.admission is not None:
                 self.metrics.record_admitted(tenant)
             rid = next(self._ids)
-            if key is None:
+            drawn = key is None
+            if drawn:
                 key = secrets.randbits(63)
             sess = self.sessions.get(tenant)
             group = (sess.backend, emb.shape[-1], sess.plan.kprime)
@@ -394,7 +487,8 @@ class ServeEngine:
                 ServeRequest(
                     request_id=rid, tenant=tenant, embedding=emb, key=key,
                     t_enqueue=now, group=group,
-                    priority=priority, rank=rank, deadline_s=deadline_s))
+                    priority=priority, rank=rank, deadline_s=deadline_s,
+                    key_drawn=drawn))
         return rid
 
     def _displace(self, rank: int, now: float) -> bool:
@@ -486,7 +580,8 @@ class ServeEngine:
         admissions still complete; the index-memoized cache itself stays
         valid and restarts its worker lazily if another engine touches it).
         Idempotent; returns the final drain's results.  `submit` raises
-        after close.
+        after close.  Over a mesh index every rank closes in lockstep, and
+        the engine's process groups (`launch.mesh.release`) go with it.
 
         ``shed_pending=True`` resolves still-queued requests as
         ``shutdown`` shed results instead of dispatching them (see
@@ -503,6 +598,8 @@ class ServeEngine:
             self.cloud.rlwe_params, self.cloud.cache_config)
         if isinstance(cache, rlwe.ShardedCandidateCache):
             cache.close()
+        if self._mesh is not None:          # every rank closes in lockstep
+            mesh_lib.release(self._mesh)
         return out
 
     def __enter__(self) -> "ServeEngine":
@@ -531,7 +628,14 @@ class ServeEngine:
         time, then a deadline pass that sheds every queued request whose
         remaining budget is spent or below the group's observed p50
         dispatch latency — all *before* a batch is popped, so shed
-        requests never reach any crypto stage."""
+        requests never reach any crypto stage.
+
+        Over a mesh index the first rank makes this choice and broadcasts
+        it (see the module docstring); every rank then dispatches the same
+        batch."""
+        return self._step(force)
+
+    def _step(self, force: bool) -> List[ServeResult]:
         now = self._clock()
         cfg = self.config
         # trigger selection and the batch pop happen under the queue lock
@@ -544,38 +648,19 @@ class ServeEngine:
             if self._retry_results:     # finished background retries
                 shed.extend(self._retry_results)
                 self._retry_results = []
-            if self.admission is not None and cfg.admission.shed_deadlines:
-                shed.extend(self._shed_expired(now))
-            if self._refill:           # credits live one batching window
-                self._refill = {g: t for g, t in self._refill.items()
-                                if now - t < cfg.max_wait_s}
-            chosen = None
-            chosen_key = None
-            chosen_refill = False
-            for key, group in self._queues.items():
-                size_hit = len(group) >= cfg.max_batch
-                head_t = group.oldest_enqueue()
-                deadline_hit = (now - head_t) >= cfg.max_wait_s
-                refill_hit = cfg.refill and key in self._refill
-                if not (size_hit or deadline_hit or refill_hit or force):
-                    continue
-                # (head class rank, oldest enqueue): with every request in
-                # the default class this is exactly the oldest-head-wins
-                # order of the uncontrolled engine
-                cand_key = (group.head_rank(), head_t)
-                if chosen is None or cand_key < chosen_key:
-                    chosen = key
-                    chosen_key = cand_key
-                    chosen_refill = refill_hit and not (
-                        size_hit or deadline_hit or force)
-            if chosen is None:
-                return shed
-            group = self._queues[chosen]
-            batch = group.pop_batch(cfg.max_batch)
-            if not group:
-                del self._queues[chosen]
-            self._refill.pop(chosen, None)       # credit consumed
-            leftovers = chosen in self._queues   # burst tail still queued
+            picked = self._pick(now, force) if self._first else None
+        if self._mesh is not None:
+            plan = mesh_lib.broadcast_object(
+                _plan_of(picked) if self._first else None, self._mesh)
+            if not self._first:
+                with self._qlock:
+                    picked = self._apply_plan(plan, now)
+        shed.extend(picked["shed"])
+        chosen = picked["chosen"]
+        if chosen is None:
+            return shed
+        batch, chosen_refill = picked["batch"], picked["refill"]
+        leftovers = picked["leftovers"]
         t_dispatch = self._clock()
         out = self._dispatch(batch)
         if self.admission is not None:
@@ -603,6 +688,96 @@ class ServeEngine:
             with self._qlock:
                 self._refill[chosen] = self._clock()
         return shed + out
+
+    def _pick(self, now: float, force: bool) -> dict:
+        """The step's choice, made under the queue lock: the deadline pass's
+        shed results, then the triggered group (None if no trigger fired)
+        and its batch, popped.  Keys: ``shed``, ``chosen``, ``batch``,
+        ``refill`` (a refill credit fired it) and ``leftovers`` (a burst
+        tail stays queued)."""
+        cfg = self.config
+        shed: List[ServeResult] = []
+        if self.admission is not None and cfg.admission.shed_deadlines:
+            shed.extend(self._shed_expired(now))
+        if self._refill:           # credits live one batching window
+            self._refill = {g: t for g, t in self._refill.items()
+                            if now - t < cfg.max_wait_s}
+        chosen = None
+        chosen_key = None
+        chosen_refill = False
+        for key, group in self._queues.items():
+            size_hit = len(group) >= cfg.max_batch
+            head_t = group.oldest_enqueue()
+            deadline_hit = (now - head_t) >= cfg.max_wait_s
+            refill_hit = cfg.refill and key in self._refill
+            if not (size_hit or deadline_hit or refill_hit or force):
+                continue
+            # (head class rank, oldest enqueue): with every request in
+            # the default class this is exactly the oldest-head-wins
+            # order of the uncontrolled engine
+            cand_key = (group.head_rank(), head_t)
+            if chosen is None or cand_key < chosen_key:
+                chosen = key
+                chosen_key = cand_key
+                chosen_refill = refill_hit and not (
+                    size_hit or deadline_hit or force)
+        picked = dict(shed=shed, chosen=chosen, batch=[], refill=False,
+                      leftovers=False)
+        if chosen is None:
+            return picked
+        group = self._queues[chosen]
+        picked["batch"] = group.pop_batch(cfg.max_batch)
+        if not group:
+            del self._queues[chosen]
+        self._refill.pop(chosen, None)       # credit consumed
+        picked["refill"] = chosen_refill
+        picked["leftovers"] = chosen in self._queues  # burst tail queued
+        return picked
+
+    def _apply_plan(self, plan: dict, now: float) -> dict:
+        """A mesh rank other than the first: shed and pop exactly the
+        requests of the first rank's `_plan_of` (under the queue lock), and
+        take its DistanceDP keys where no caller fixed them."""
+        queued = {req.request_id: (key, req)
+                  for key, q in self._queues.items() for req in q}
+
+        def take(rid: int):
+            got = queued.pop(rid, None)
+            if got is None:
+                raise MeshDivergence(
+                    f"request {rid} is not queued on this rank: the ranks' "
+                    f"submissions differ")
+            key, req = got
+            q = self._queues[key]
+            q.remove(req)
+            if not q:
+                del self._queues[key]
+                self._refill.pop(key, None)
+            return req
+
+        shed = [self._resolve_shed(take(rid), reason, now)
+                for rid, reason in plan["shed"]]
+        batch = [take(rid) for rid in plan["rids"]]
+        for req in batch:
+            if req.request_id in plan["keys"]:
+                req.key = plan["keys"][req.request_id]
+        if plan["chosen"] is not None:
+            self._refill.pop(plan["chosen"], None)
+        return dict(shed=shed, chosen=plan["chosen"], batch=batch,
+                    refill=plan["refill"], leftovers=plan["leftovers"])
+
+    def _agree(self, stage: str, failed: Sequence[bool]) -> None:
+        """Over a mesh index: hold this rank's outcome of a stage (which
+        lanes failed) to every other rank's; raises `MeshDivergence` on
+        every rank when they differ or the ranks are at different stages.
+        Nothing over no mesh."""
+        if self._mesh is None:
+            return
+        mine = (stage, tuple(bool(f) for f in failed))
+        every = mesh_lib.gather_objects(mine, self._mesh)
+        if any(o != mine for o in every):
+            raise MeshDivergence(f"stage outcomes differ across ranks: "
+                                 f"{every}")
 
     def _shed_expired(self, now: float) -> List[ServeResult]:
         """Deadline pass over every queue: resolve each request the
@@ -633,6 +808,9 @@ class ServeEngine:
         way every submitted request gets exactly one result — buffered
         displacement sheds are flushed here too, even when the queues are
         already empty."""
+        return self._drain(shed)
+
+    def _drain(self, shed: bool) -> List[ServeResult]:
         out: List[ServeResult] = []
         with self._qlock:
             if self._shed_results:
@@ -646,7 +824,7 @@ class ServeEngine:
                 self._queues.clear()
                 self._refill.clear()
         while self.pending:
-            out.extend(self.step(force=True))
+            out.extend(self._step(True))
         # retry-lane barrier: poisoned lanes handed to the background
         # retry lane during the flush above (or by earlier steps) must
         # resolve before drain returns — every submit gets one result
@@ -687,7 +865,8 @@ class ServeEngine:
             if self.config.sequential:
                 results, bad = _lane_stage(
                     lambda lane: self._run_one(batch[lane]),
-                    range(len(batch)))
+                    range(len(batch)), stage="sequential",
+                    agree=self._agree, each=True)
                 poisoned = [(batch[lane], err)
                             for lane, err in bad.items()]
                 results = [results[lane] for lane in sorted(results)]
@@ -737,7 +916,7 @@ class ServeEngine:
             tr.event("quarantine", track=f"request-{req.request_id}",
                      request_id=req.request_id, tenant=req.tenant,
                      error_type=type(err).__name__)
-            if self.config.retry_lane:
+            if self.config.retry_lane and self._mesh is None:
                 self._retry_submit(req, err, batch_size)
             else:
                 out.append(self._retry_solo(req, err, batch_size))
@@ -761,8 +940,12 @@ class ServeEngine:
                              request_id=req.request_id,
                              tenant=req.tenant, attempt=req.retries):
                     res = self._run_one(req)
+            except mesh_lib.MeshError:
+                raise
             except Exception as e:  # noqa: BLE001 — retry keeps its err
-                err = e
+                err, res = e, None
+            self._agree("retry", [res is None])
+            if res is None:
                 continue
             res.quarantined = True
             self.metrics.record_quarantined_retry_ok(req.tenant)
@@ -831,9 +1014,17 @@ class ServeEngine:
         for fault attribution."""
         if self._searcher is not None:
             return np.asarray(self._searcher(perturbed, kprime))
-        return batching.topk_batch(
-            self.view, perturbed, kprime,
-            nprobe=self.config.nprobe).indices.cpu().numpy()
+        # a collective search: every rank must get here (see _agree)
+        self._agree("search", [False])
+        try:
+            return batching.topk_batch(
+                self.view, perturbed, kprime,
+                nprobe=self.config.nprobe).indices.cpu().numpy()
+        except MeshDivergence:
+            # the search's row group parted ways: tell the ranks of the
+            # other row groups, which raise at their next agreement
+            mesh_lib.gather_objects(("search", None), self._mesh)
+            raise
 
     # -- sequential comparison path ----------------------------------------
 
@@ -876,6 +1067,8 @@ class ServeEngine:
         ever lost to a propagating exception."""
         try:
             return self._run_batched_stages(batch, bid)
+        except mesh_lib.MeshError:
+            raise
         except Exception as e:          # noqa: BLE001 — zero-loss contract
             return [], [(req, e) for req in batch]
 
@@ -916,7 +1109,8 @@ class ServeEngine:
                     [self._generator(batch[lane].key) for lane in ls],
                     E[list(ls)], [users[lane].plan.eps for lane in ls],
                     device=self.device)),
-                alive, tracer=tr, batch_id=bid, stage="perturb")
+                alive, tracer=tr, batch_id=bid, stage="perturb",
+                agree=self._agree)
         drop(bad)
         if not alive:
             return [], poisoned
@@ -933,7 +1127,8 @@ class ServeEngine:
             cand, bad = _bisect_lanes(
                 lambda ls: list(self._search_topk(
                     torch.stack([pert[lane] for lane in ls]), kprime)),
-                alive, tracer=tr, batch_id=bid, stage="topk")
+                alive, tracer=tr, batch_id=bid, stage="topk",
+                agree=self._agree)
         drop(bad)
         if not alive:
             return [], poisoned
@@ -967,7 +1162,8 @@ class ServeEngine:
                 with sessions[lane].lock:   # rng draw vs. the retry lane
                     return users[lane].encrypt_query(req.embedding)
 
-        enc, bad = _lane_stage(encrypt, alive)
+        enc, bad = _lane_stage(encrypt, alive, stage="encrypt",
+                               agree=self._agree)
         drop(bad)
         if not alive:
             return [], poisoned
@@ -999,7 +1195,8 @@ class ServeEngine:
         with tr.span("score", batch_id=bid, lanes=len(alive),
                      kprime=kprime, backend=backend):
             cts, bad = _bisect_lanes(score, alive, tracer=tr,
-                                     batch_id=bid, stage="score")
+                                     batch_id=bid, stage="score",
+                                     agree=self._agree)
         if bad:
             full_stack.clear()            # stack no longer matches alive
         drop(bad)
@@ -1017,7 +1214,8 @@ class ServeEngine:
 
         with tr.span("decrypt", batch_id=bid, lanes=len(alive)):
             scores, bad = _bisect_lanes(decrypt, alive, tracer=tr,
-                                        batch_id=bid, stage="decrypt")
+                                        batch_id=bid, stage="decrypt",
+                                        agree=self._agree)
         drop(bad)
 
         # module 2b/2c + accounting, per lane (direct attribution)
@@ -1042,9 +1240,11 @@ class ServeEngine:
                 latency_s=self._clock() - req.t_enqueue,
                 batch_size=len(batch))
 
-        done, bad = _lane_stage(finish, alive)
+        done, bad = _lane_stage(finish, alive, stage="finish",
+                                agree=self._agree)
         drop(bad)
         return [done[lane] for lane in alive], poisoned
 
 
-__all__ = ["EngineConfig", "ServeRequest", "ServeResult", "ServeEngine"]
+__all__ = ["EngineConfig", "ServeRequest", "ServeResult", "ServeEngine",
+           "MeshDivergence"]

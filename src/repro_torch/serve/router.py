@@ -42,6 +42,20 @@ resolves exactly once.  Slice *data* is shared (every replica views one
 index on one device), so a quarantined replica's slice keeps being scanned
 by a fallback on the caller's thread: healthy replicas' results stay
 bit-identical even while a peer is down.
+
+Over a mesh index every rank runs the same router, SPMD (the engine's
+contract: the same sessions and submissions in the same order on every
+rank).  The replica slices view the index's one gathered corpus, built at
+construction on the caller's thread, so the scatter-gather scans are local
+and issue no collective.  What still runs collectives at request time (the
+engine's batch decision and stage agreement, a row-sharded pinned cache's
+gather) runs on each replica engine's own process groups
+(`launch.mesh.fork`, made here in replica order on every rank), so the
+replicas' step threads never pair their calls; `close` releases them.  A
+rank's timeout would be a decision by its own clock, so a mesh router
+takes no ``scan_timeout_s`` or ``step_timeout_s``.  A failed collective,
+or ranks that parted ways (`launch.mesh.MeshError`), is raised from
+`step` / `drain`, never taken for a replica's fault.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch import obs
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.retrieval.index import FlatIndex, IndexSlice, plan_row_slices
 from repro_torch.retrieval.topk import slice_topk
 from repro_torch.serve import admission as adm
@@ -255,6 +270,12 @@ class ReplicaRouter:
                  sessions: Optional[SessionManager] = None,
                  clock=time.monotonic):
         self.config = config or RouterConfig()
+        if index.mesh is not None and (
+                self.config.scan_timeout_s is not None
+                or self.config.step_timeout_s is not None):
+            raise ValueError("a router over a mesh index takes no "
+                             "scan_timeout_s or step_timeout_s (a timeout "
+                             "is one rank's clock)")
         self.index = index
         self.sessions = (SessionManager(device=index.device)
                          if sessions is None else sessions)
@@ -366,6 +387,9 @@ class ReplicaRouter:
         # pinned view — a single engine and a router fed the same opens
         # therefore hit identical plan-cache keys
         session_kwargs.setdefault("epoch", self.view.epoch)
+        if self.index.mesh is not None:     # the first rank's seed
+            return self.replicas[0].engine.open_session(tenant,
+                                                        **session_kwargs)
         return self.sessions.open(tenant, **session_kwargs)
 
     def home_replica(self, tenant: str) -> int:
@@ -545,21 +569,30 @@ class ReplicaRouter:
                          label: str) -> List[ServeResult]:
         """Run ``call(engine)`` on every healthy replica's step worker in
         parallel, collecting through the ledger; a raise or stall
-        quarantines that replica."""
+        quarantines that replica.  Over a mesh index a
+        `launch.mesh.MeshError` (a failed collective, or ranks that parted
+        ways) quarantines nothing: it is raised once every replica's call
+        has returned."""
         out = self._take_resolved()
         with self._lock:
             healthy = [h for h in self.replicas if not h.quarantined]
         futures = [(h, h.step_pool.submit(call, h.engine)) for h in healthy]
+        fatal = None
         for h, fut in futures:
             try:
                 results = fut.result(timeout=timeout)
             except FutureTimeoutError:
                 self._quarantine(h.replica_id, f"{label}_stalled")
                 continue
+            except mesh_lib.MeshError as e:
+                fatal = fatal or e
+                continue
             except Exception as e:       # noqa: BLE001 — fault boundary
                 self._quarantine(h.replica_id, f"{label}:{type(e).__name__}")
                 continue
             out.extend(self._collect(h, results))
+        if fatal is not None:
+            raise fatal
         out.extend(self._take_resolved())
         return out
 

@@ -15,8 +15,13 @@ device count (elastic).  The policies here are host-side and composable with
     redistribution when a persistent straggler is detected.
 
 Counterpart of ``repro/train/fault.py``.  The reference's
-``state_shardings`` (re-sharding onto the current mesh) becomes the
-device the state is restored to (`checkpoint.restore`'s ``device``).
+``state_shardings`` (re-sharding onto the current mesh) becomes
+``mesh`` and ``state_specs``: over a mesh the state's leaves are this
+rank's slices under ``state_specs``, checkpoints hold full arrays, and a
+restart on another mesh shape (or in one process) restores each rank's
+slices under its own mesh (`checkpoint.save` / `checkpoint.restore`); the
+step function takes and returns such slices.  ``device`` picks where a
+restored state lands.
 """
 
 from __future__ import annotations
@@ -88,19 +93,23 @@ class ResumableRun:
     def run(self, step_fn: Callable, state: Any, batches_fn: Callable,
             n_steps: int, *, injector: Optional[FailureInjector] = None,
             monitor: Optional[StragglerMonitor] = None,
-            device: DeviceLike = None) -> tuple:
+            device: DeviceLike = None, mesh=None,
+            state_specs: Any = None) -> tuple:
         """Runs up to n_steps, resuming from the newest checkpoint.
 
         `batches_fn(step) -> batch` must be random-access (deterministic,
         seekable) so the data pipeline replays exactly after restart.
         A restart restores the newest checkpoint into ``state`` (leaves on
-        ``device``, default their own; see `checkpoint.restore`).
+        ``device``, default their own; see `checkpoint.restore`).  Over
+        ``mesh`` the state holds this rank's slices under ``state_specs``,
+        and every rank runs this call in lockstep.
         Returns (state, completed_steps, metrics_history).
         """
         start = 0
         last = self.latest()
         if last is not None:
-            state = ckpt.restore(self.ckpt_dir, last, state, device=device)
+            state = ckpt.restore(self.ckpt_dir, last, state, device=device,
+                                 mesh=mesh, specs=state_specs)
             start = last + 1
         history = []
         for step in range(start, n_steps):
@@ -114,7 +123,8 @@ class ResumableRun:
                 metrics["straggler"] = monitor.observe(step, dt)
             history.append(metrics)
             if (step + 1) % self.checkpoint_every == 0 or step == n_steps - 1:
-                ckpt.save(self.ckpt_dir, step, state, keep=self.keep)
+                ckpt.save(self.ckpt_dir, step, state, keep=self.keep,
+                          mesh=mesh, specs=state_specs)
         return state, n_steps - start, history
 
 
