@@ -50,9 +50,10 @@ counterpart of ``repro/configs/remoterag.py``: 10^6 documents of dimension
      channels; the phase's line): one batch of 8 lanes through the
      vectorized encrypt, score and decrypt on the card, each stage timed,
      profiled and held bit for bit against the object path under shared
-     seeds (decrypted scores within 2e-3 of the plaintext inner products);
-     16 requests of 4 tenants through a ``ServeEngine`` (max_batch 8), the
-     first 8 again one at a time, equal per request, recall@5 against the
+     seeds on its first 4 lanes (decrypted scores within 2e-3 of the
+     plaintext inner products); 16 requests of 4 tenants through a
+     ``ServeEngine`` (max_batch 8), the first 4 again one at a time,
+     equal per request, recall@5 against the
      plaintext top-5, ciphertext bytes equal to the accounting model's at
      each key's own size; one request through ``run_remoterag``; one batch mixing a
      1024-bit tenant (90 channels, the object path) with 512-bit ones, its
@@ -170,15 +171,35 @@ counterpart of ``repro/configs/remoterag.py``: 10^6 documents of dimension
      the all-reduces' host copies apart, device peaks); the config_100m re-sharding drill: a checkpoint
      saved on (2, 2) restored on (4,) and in one process, and a run that
      dies on (2, 2) resumed on (4,), bit for bit.  Every rank loads the
-     parent's kernel build (its mtime unchanged).
+     parent's kernel build (its mtime unchanged);
+ 15. the GNN and recsys models (the ``arch`` phase, `arch_phase`): (a)
+     graphcast at every published width (16 bf16 layers, d_hidden 512,
+     227 vars, remat): 2 float32 layers card = CPU on a ~2,000-node
+     fanout subgraph (loss 1e-5, gradients 1e-4 normwise), then AdamW
+     steps on a 1024-seed fanout (15, 10) subgraph of a synthetic
+     232,965-node host graph padded to ``minibatch_lg``'s bounds (ms a
+     step beside its FLOP bound, idle share, device peak) and one step
+     each at ``full_graph_sm`` and ``molecule``; (b) FM, DCN-v2, DIEN and
+     two-tower at their published widths and vocabularies: card = CPU on
+     a batch of 256, the forward at ``serve_p99`` and AdamW steps at
+     ``train_batch`` (two-tower's cut, DIEN's in microbatches); (c) the
+     full-width two-tower trained a few steps, score-top-k over 10^6
+     item-tower rows of 256 against ``matmul`` + ``topk``, and
+     ``examples/recsys_retrieval.py``'s round over the item corpus on the
+     RLWE backend: recall@5 = 1.0, decrypted scores within 2e-3, every
+     serving kernel launched, each kernel held against its plain version
+     at the round's width-256 shapes; (d) every dry-run cell built on
+     ``meta`` tensors with its bytes per rank against 80 GB (and the
+     non-LM cells' matmul FLOPs).  Cuts: ``ARCH_CUTS``.
 
 Each path (one-at-a-time, batch, each engine and router run, the text
 pack and engines, each attack setting on the card, the LM's parity run,
 prefill and decode, the training parity run, steps and drill, the mesh
-phase's searches, round and MoE layer, on every rank) runs with
+phase's searches, round and MoE layer, on every rank, the GNN and recsys
+runs and the two-tower round) runs with
 the launch counts set to 0 just before it and read just after, and every
-kernel of the path must have launched (the LM, training and mesh MoE
-paths have none: their counts must stay 0); the RLWE serving paths must
+kernel of the path must have launched (the LM, training, mesh MoE, GNN
+and recsys paths have none: their counts must stay 0); the RLWE serving paths must
 launch no standalone inverse NTT or pointwise product (the key product
 replaced them there; the privacy-conscious baseline's staged scoring
 still launches both, so every kernel runs on some path); the kernels
@@ -242,6 +263,10 @@ OFF_PATH_KERNELS = ("ntt_inv", "pointwise_mul", "fused_rerank")
 PAILLIER_KERNELS = ("score_topk",)
 CONSCIOUS_KERNELS = ("ntt_fwd", "ntt_inv", "pointwise_mul", "key_mul")
 PAILLIER_BITS, FALLBACK_BITS = 512, 1024   # tenants' keys; the object tier
+# Paillier depth, cut for the script's time: the object path holds the
+# batch's first PAILLIER_OBJECT_LANES lanes (of 8), the sequential engine
+# serves the first PAILLIER_SEQ_REQUESTS requests (of 8)
+PAILLIER_OBJECT_LANES, PAILLIER_SEQ_REQUESTS = 4, 4
 CONSCIOUS_ROWS = 512         # rows of the privacy-conscious baselines
 # text phase: the service's text front end at full width (the embedder of
 # encoder_config(dim=768): 4 layers, 6 heads x 128, d_ff 3072, vocab 32768)
@@ -313,6 +338,41 @@ GPIPE_BATCH, GPIPE_SEQ, GPIPE_MICRO = 8, 512, 4
 # DRILL_BATCH x RESHARD_SEQ, a checkpoint every RESHARD_EVERY, a failure
 # at RESHARD_FAIL on MESH_SHAPE, resumed on (MESH_WORLD,) ("data",)
 RESHARD_STEPS, RESHARD_EVERY, RESHARD_FAIL, RESHARD_SEQ = 4, 2, 2, 128
+
+
+# arch phase: the GNN and recsys models at their published widths
+# (repro_torch/configs/{graphcast,fm,dcn_v2,dien,two_tower_retrieval}.py).
+# (a) graphcast on a synthetic host graph of Reddit's 232,965 nodes with
+# GNN_IN_DEG in-edges each (cut from Reddit's ~492: only the sampled
+# subgraph reaches the card); minibatch_lg's 1024 seeds, fanout (15, 10),
+# padded to the shape's static bounds, GNN_STEPS timed steps; parity at
+# GNN_PARITY_LAYERS float32 layers on GNN_PARITY_SEEDS seeds' fanout
+GNN_NODES, GNN_IN_DEG, GNN_SEEDS, GNN_STEPS = 232_965, 50, 1024, 3
+GNN_PARITY_LAYERS, GNN_PARITY_SEEDS = 2, 12
+# (b) recsys at serve_p99 and train_batch; two-tower's in-batch logits
+# (B^2 float32, with their softmax and gradients ~5 such tensors: 86 GB at
+# 65,536) cut its batch; DIEN's 2 x 100 GRU steps keep their activations,
+# so its 65,536 run in DIEN_MICRO microbatches (the same global batch)
+REC_ARCHS = ("fm", "dcn-v2", "dien", "two-tower-retrieval")
+REC_SERVE, REC_TRAIN, TWOTOWER_TRAIN, DIEN_MICRO = 512, 65_536, 32_768, 4
+REC_PARITY_BATCH = 256
+# (c) the private two-tower round: RETRIEVAL_STEPS training steps of
+# RETRIEVAL_BATCH co-click pairs; the first stage at retrieval_cand's 10^6
+# candidates; the round over RETRIEVAL_ITEMS items (uncut: its dense
+# cache, 49 GB, fits beside the rest of the phase)
+RETRIEVAL_STEPS, RETRIEVAL_BATCH = 10, 1024
+RETRIEVAL_CANDS, RETRIEVAL_ITEMS = 10**6, 10**6
+ARCH_CUTS = [
+    "graphcast: host graph in-degree 50 (Reddit ~492); only the sampled "
+    "subgraph (padded to minibatch_lg) reaches the card",
+    "graphcast: ogb_products in the dry run only (one bf16 edge tensor "
+    "63 GB)",
+    "graphcast parity: 2 of 16 layers in float32 on ~2,000 nodes",
+    "two-tower train_batch 65,536 -> 32,768 (in-batch logits)",
+    "dien train_batch 65,536 in 4 microbatches of 16,384",
+    "recsys parity: batch 256",
+    "two-tower round: 10 training steps of 1,024 pairs; synthetic items",
+]
 
 
 def paper():
@@ -1490,24 +1550,26 @@ def paillier_phase(torch, np, args, index, plan, queries, shared) -> tuple:
     check(pvec.counters["object"] == 0,
           f"paillier: 512-bit lanes took the object path {pvec.counters}")
 
-    # the object path on the same batch and seeds: the same integers
-    obj = {}
+    # the object path on the batch's first lanes, same seeds: the same
+    # integers
+    lanes = PAILLIER_OBJECT_LANES
+    obj = dict(lanes=lanes)
     t0 = time.perf_counter()
     obj_enc = [pai.encrypt_vector(sks[j].pub, queries[j],
                                   rng=np.random.default_rng(enc_seed + j))
-               for j in range(nq)]
+               for j in range(lanes)]
     obj["encrypt_ms"] = (time.perf_counter() - t0) * 1e3
-    check(obj_enc == enc, "paillier: vectorized encryption differs from "
-                          "the object path")
+    check(obj_enc == enc[:lanes], "paillier: vectorized encryption differs "
+                                  "from the object path")
     t0 = time.perf_counter()
     obj_cts = [pai.encrypted_scores(sks[j].pub, enc[j], rows_np[j],
                                     rng=np.random.default_rng(blind_seed + j))
-               for j in range(nq)]
+               for j in range(lanes)]
     obj["score_ms"] = (time.perf_counter() - t0) * 1e3
-    check(obj_cts == cts, "paillier: vectorized scores differ from the "
-                          "object path")
+    check(obj_cts == cts[:lanes], "paillier: vectorized scores differ from "
+                                  "the object path")
     t0 = time.perf_counter()
-    obj_dec = [pai.decrypt_scores(sks[j], cts[j]) for j in range(nq)]
+    obj_dec = [pai.decrypt_scores(sks[j], cts[j]) for j in range(lanes)]
     obj["decrypt_ms"] = (time.perf_counter() - t0) * 1e3
     check(all(np.array_equal(a, b) for a, b in zip(obj_dec, dec)),
           "paillier: vectorized decryption differs from the object path")
@@ -1517,8 +1579,9 @@ def paillier_phase(torch, np, args, index, plan, queries, shared) -> tuple:
     check(max_err <= 2e-3, f"paillier: decrypted scores off by {max_err}")
     out.update(batch_lanes=nq, channels=channels, stages=stages,
                object_path=obj, max_score_err=max_err,
+               # wall a lane, vectorized over the object path's
                vectorized_vs_object=dict(
-                   (s, stages[s]["wall_ms"] / obj[f"{s}_ms"])
+                   (s, stages[s]["wall_ms"] / nq / (obj[f"{s}_ms"] / lanes))
                    for s in ("encrypt", "score", "decrypt")))
 
     # -- (b) 16 requests of 4 tenants through the engine, batched and one
@@ -1540,9 +1603,9 @@ def paillier_phase(torch, np, args, index, plan, queries, shared) -> tuple:
     for name, cfg in (("batched", EngineConfig(max_batch=8, trace=True)),
                       ("sequential", EngineConfig(max_batch=1,
                                                   sequential=True))):
-        # one at a time, the first 8 requests: the object path scores them
-        # on the host (seconds a request)
-        count = n if name == "batched" else nq
+        # one at a time, the first PAILLIER_SEQ_REQUESTS requests: seconds
+        # of bignum launches a request
+        count = n if name == "batched" else PAILLIER_SEQ_REQUESTS
         eng = engine(cfg, tenants)
         res, run = serve_run(torch, np, eng, reqs[:count], rkeys[:count],
                              lambda j: f"tenant-{j % TENANTS}",
@@ -3767,6 +3830,482 @@ def mesh_phase(torch, np, args, first: dict) -> tuple:
     return out, paths
 
 
+# -- arch phase ---------------------------------------------------------------
+
+def gnn_flops(cfg, v: int, e: int) -> int:
+    """Matrix-product FLOPs of one GNN training step over v nodes and e
+    edges, as the work needs them: 2·M·K·N a product forward, twice that
+    backward, less the encoder's first input gradient (the features need
+    none).  Remat's recomputed forward is not counted."""
+    d, f = cfg.d_hidden, cfg.d_feat
+    fwd = 2 * (v * f * d + v * d * d + e * 2 * d * d
+               + cfg.n_layers * (e * 4 * d * d + v * 3 * d * d)
+               + v * d * d + v * d * cfg.n_vars)
+    return 3 * fwd - 2 * v * f * d
+
+
+def gnn_graph(np, rng):
+    """The synthetic host graph: GNN_NODES nodes (Reddit's count), each
+    with GNN_IN_DEG in-edges from uniform sources; its in-neighbour CSR."""
+    from repro_torch.models import gnn
+
+    dst = np.repeat(np.arange(GNN_NODES), GNN_IN_DEG)
+    src = rng.integers(0, GNN_NODES, dst.shape[0])
+    return gnn.build_csr(src, dst, GNN_NODES)
+
+
+def gnn_batch(torch, np, rng, n_nodes: int, src, dst, d_feat: int,
+              n_vars: int, pad_nodes=None, pad_edges=None):
+    """A `GraphBatch` on the card: seeded features (``d_feat``) and
+    targets (``n_vars``) for ``n_nodes`` nodes and the edges (src, dst),
+    padded to ``pad_nodes`` / ``pad_edges`` (the shape's static bounds:
+    zero-feature nodes; the pad edges self-loops spread over them)."""
+    from repro_torch.models import gnn
+
+    v = pad_nodes or n_nodes
+    e = pad_edges or len(src)
+    check(v >= n_nodes + (e > len(src)) and e >= len(src),
+          f"subgraph of {n_nodes} nodes / {len(src)} edges exceeds its "
+          f"bounds {v} / {e}")
+    feats = np.zeros((v, d_feat), np.float32)
+    feats[:n_nodes] = rng.normal(size=(n_nodes, d_feat))
+    loops = n_nodes + np.arange(e - len(src)) % max(v - n_nodes, 1)
+    s = np.concatenate([src, loops]).astype(np.int32)
+    d = np.concatenate([dst, loops]).astype(np.int32)
+    tgt = rng.normal(size=(v, n_vars)).astype(np.float32)
+    return gnn.GraphBatch(*(torch.from_numpy(x).cuda()
+                            for x in (feats, s, d, tgt)))
+
+
+def gnn_parity(torch, np, args, csr) -> dict:
+    """(a) graphcast at full width, GNN_PARITY_LAYERS float32 layers, one
+    set of weights from a seeded CPU generator on the CPU and the card; a
+    subgraph of GNN_PARITY_SEEDS seeds' fanout: loss within
+    TRAIN_LOSS_RTOL relative and every gradient within TRAIN_GRAD_RTOL
+    normwise of the CPU's; whether a repeat on the card is bit-identical
+    (printed), and two runs under deterministic algorithms (gated)."""
+    import dataclasses
+
+    from repro_torch.configs import graphcast, shapes
+    from repro_torch.models import gnn
+    from repro_torch.train import trainer
+
+    shape = shapes.GNN_SHAPES["minibatch_lg"]
+    cfg = dataclasses.replace(graphcast.CONFIG, n_layers=GNN_PARITY_LAYERS,
+                              dtype="float32", d_feat=shape.d_feat)
+    rng = np.random.default_rng(args.seed + 31)
+    nodes, src, dst = gnn.sample_fanout(
+        rng, *csr, rng.choice(GNN_NODES, GNN_PARITY_SEEDS, replace=False),
+        shape.fanout)
+    batch = gnn_batch(torch, np, rng, len(nodes), src, dst, cfg.d_feat,
+                      cfg.n_vars)
+    cpu = gnn.Gnn(cfg, generator=torch.Generator().manual_seed(args.seed),
+                  device="cpu")
+    card = gnn.Gnn(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+
+    def run(model, b):
+        model.requires_grad_(True)
+        return trainer.value_and_grad(
+            lambda p, *x: model.loss(gnn.GraphBatch(*x)),
+            dict(model.named_parameters()), tuple(b))
+
+    def same(a, b) -> bool:
+        return torch.equal(a[0], b[0]) and all(
+            torch.equal(a[1][k], b[1][k]) for k in a[1])
+
+    want_loss, want = run(cpu, gnn.GraphBatch(*(t.cpu() for t in batch)))
+    loss, grads = run(card, batch)
+    loss_err = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    errs = {k: rel_err(g, want[k]) for k, g in grads.items()}
+    worst = max(errs, key=errs.get)
+    check(loss_err <= TRAIN_LOSS_RTOL, f"gnn parity: loss off by {loss_err}")
+    check(errs[worst] <= TRAIN_GRAD_RTOL,
+          f"gnn parity: gradient {worst} off by {errs[worst]}")
+    # the scatters' float atomics: a repeat on the card, then two under
+    # deterministic algorithms, which must agree bit for bit
+    default_repeat = same((loss, grads), run(card, batch))
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = run(card, batch)
+        det_repeat = same(det, run(card, batch))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    check(det_repeat, "gnn parity: two deterministic runs differ")
+    det_err = max(rel_err(g, want[k]) for k, g in det[1].items())
+    check(det_err <= TRAIN_GRAD_RTOL,
+          f"gnn parity: deterministic gradients off by {det_err}")
+    return dict(layers=cfg.n_layers, dtype=cfg.dtype, nodes=len(nodes),
+                edges=len(src), loss_rel_err=loss_err,
+                grad_max_rel_err=errs[worst], grad_worst=worst,
+                default_repeat_bit_equal=default_repeat,
+                deterministic_repeat_bit_equal=det_repeat,
+                deterministic_grad_max_rel_err=det_err)
+
+
+def gnn_steps(torch, np, args, shape, batch, steps: int) -> dict:
+    """graphcast at every published width (16 bf16 layers, remat, d_feat
+    of ``shape``) from a seeded CUDA generator: one warm-up AdamW step,
+    ``steps`` timed, one profiled; ms a step beside its FLOP bound, the
+    losses, the device peak."""
+    import dataclasses
+
+    from repro_torch.configs import graphcast
+    from repro_torch.models import gnn
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer
+
+    cfg = dataclasses.replace(graphcast.CONFIG, d_feat=shape.d_feat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = gnn.Gnn(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    params = dict(model.requires_grad_(True).named_parameters())
+    ocfg = opt_lib.AdamWConfig()
+    state = opt_lib.init(params, ocfg)
+    step = trainer.make_train_step(
+        lambda p, *x: model.loss(gnn.GraphBatch(*x)), ocfg,
+        param_dtype=cfg.torch_dtype)
+    losses = []
+
+    def one():
+        nonlocal state
+        t = time.perf_counter()
+        _, state, m = step(params, state, tuple(batch))
+        losses.append(float(m["loss"]))          # waits for the device
+        return (time.perf_counter() - t) * 1e3
+
+    warm = one()
+    ms = [one() for _ in range(steps)]
+    median = statistics.median(ms)
+    _, prof = profiled(torch, one, median, top=6)
+    check(all(math.isfinite(x) for x in losses),
+          f"gnn {shape.name}: non-finite loss {losses}")
+    v, e = batch.node_feats.shape[0], batch.edge_src.shape[0]
+    flops = gnn_flops(cfg, v, e)
+    bound_ms = flops / BF16_OPS_S * 1e3
+    out = dict(shape=shape.name, nodes=v, edges=e, d_feat=cfg.d_feat,
+               layers=cfg.n_layers, d_hidden=cfg.d_hidden,
+               dtype=cfg.dtype, remat=cfg.remat, warmup_ms=warm,
+               step_ms=ms, step_ms_median=median, tflop=flops / 1e12,
+               bound_ms=bound_ms, bound_by="operations",
+               bound_share=bound_ms / median, losses=losses,
+               step_profile=prof,
+               device_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model, params, state
+    return out
+
+
+def gnn_part(torch, np, args) -> dict:
+    """(a) The GNN: `gnn_parity`; graphcast's full-width steps on the
+    fanout subgraph of GNN_SEEDS seeds padded to ``minibatch_lg``'s static
+    bounds (GNN_STEPS timed), one step each at ``full_graph_sm`` and
+    ``molecule`` on uniform random graphs of their sizes."""
+    from repro_torch.configs import graphcast, shapes
+    from repro_torch.models import gnn
+
+    rng = np.random.default_rng(args.seed + 30)
+    t0 = time.perf_counter()
+    csr = gnn_graph(np, rng)
+    graph_s = time.perf_counter() - t0
+    out = dict(host_graph=dict(nodes=GNN_NODES, in_degree=GNN_IN_DEG,
+                               build_s=graph_s))
+    out["parity"] = gnn_parity(torch, np, args, csr)
+    shape = shapes.GNN_SHAPES["minibatch_lg"]
+    t0 = time.perf_counter()
+    nodes, src, dst = gnn.sample_fanout(
+        rng, *csr, rng.choice(GNN_NODES, GNN_SEEDS, replace=False),
+        shape.fanout)
+    sample_s = time.perf_counter() - t0
+    n_vars = graphcast.CONFIG.n_vars
+    batch = gnn_batch(torch, np, rng, len(nodes), src, dst, shape.d_feat,
+                      n_vars, shape.n_nodes, shape.n_edges)
+    out["minibatch_lg"] = dict(gnn_steps(torch, np, args, shape, batch,
+                                         GNN_STEPS),
+                               sampled_nodes=len(nodes),
+                               sampled_edges=len(src), sample_s=sample_s)
+    for name in ("full_graph_sm", "molecule"):
+        shp = shapes.GNN_SHAPES[name]
+        src = rng.integers(0, shp.n_nodes, shp.n_edges).astype(np.int32)
+        dst = rng.integers(0, shp.n_nodes, shp.n_edges).astype(np.int32)
+        batch = gnn_batch(torch, np, rng, shp.n_nodes, src, dst, shp.d_feat,
+                          n_vars)
+        out[name] = gnn_steps(torch, np, args, shp, batch, 1)
+    ogb = shapes.GNN_SHAPES["ogb_products"]
+    out["ogb_products"] = (
+        f"dry run only: {ogb.n_edges:,} edges x 512 in bf16 is "
+        f"{ogb.n_edges * 512 * 2 / 1e9:.1f} GB for one edge tensor, "
+        f"beyond one card")
+    return out
+
+
+def recsys_inputs(np, rng, arch: str, cfg, b: int) -> tuple:
+    """A seeded batch of ``arch``'s inputs at batch ``b`` (numpy): ids per
+    field within the field's vocabulary, offset globally; labels last."""
+    lbl = rng.integers(0, 2, b).astype(np.float32)
+    if arch in ("fm", "dcn-v2"):
+        ids = (rng.integers(0, cfg.vocab_per_field, (b, cfg.n_sparse))
+               + np.arange(cfg.n_sparse) * cfg.vocab_per_field)
+        ids = ids.astype(np.int32)
+        if arch == "fm":
+            return ids, lbl
+        return rng.normal(size=(b, cfg.n_dense)).astype(np.float32), ids, lbl
+    if arch == "dien":
+        return (rng.integers(0, cfg.item_vocab, (b, cfg.seq_len)).astype(
+            np.int32), rng.integers(0, cfg.item_vocab, b).astype(np.int32),
+            lbl)
+    return (rng.integers(0, cfg.user_vocab, (b, cfg.n_user_feats)).astype(
+        np.int32), rng.integers(0, cfg.item_vocab,
+                                (b, cfg.n_item_feats)).astype(np.int32))
+
+
+def recsys_arch(torch, np, args, arch: str) -> dict:
+    """One recsys model at its published widths and vocabularies: (1)
+    card = CPU on a REC_PARITY_BATCH batch from one seeded CPU weight set
+    (loss TRAIN_LOSS_RTOL, every gradient TRAIN_GRAD_RTOL normwise);
+    (2) the forward at ``serve_p99`` (REC_SERVE), median of 10; (3) AdamW
+    steps at ``train_batch`` (REC_TRAIN; two-tower cut to TWOTOWER_TRAIN,
+    DIEN in DIEN_MICRO microbatches): one warm-up, 2 timed; matmul FLOPs
+    from the dry run's counter on the same step's cell."""
+    import dataclasses
+
+    from repro_torch.configs import families, registry, shapes
+    from repro_torch.launch import dryrun
+    from repro_torch.models import recsys
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer
+
+    cfg = registry.get(arch).config
+    rng = np.random.default_rng(args.seed + 40)
+    out = dict(arch=arch)
+    cpu = recsys.MODELS[arch](cfg, generator=torch.Generator().manual_seed(
+        args.seed), device="cpu")
+    card = recsys.MODELS[arch](cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    out["params"] = sum(p.numel() for p in card.parameters())
+    batch = recsys_inputs(np, rng, arch, cfg, REC_PARITY_BATCH)
+
+    def grads(model, b):
+        model.requires_grad_(True)
+        return trainer.value_and_grad(lambda p, *x: model.loss(*x),
+                                      dict(model.named_parameters()), b)
+
+    want_loss, want = grads(cpu, tuple(torch.from_numpy(x) for x in batch))
+    loss, got = grads(card, tuple(torch.from_numpy(x).cuda() for x in batch))
+    loss_err = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    errs = {k: rel_err(g, want[k]) for k, g in got.items()}
+    worst = max(errs, key=errs.get)
+    check(loss_err <= TRAIN_LOSS_RTOL,
+          f"{arch} parity: loss off by {loss_err}")
+    check(errs[worst] <= TRAIN_GRAD_RTOL,
+          f"{arch} parity: gradient {worst} off by {errs[worst]}")
+    out["parity"] = dict(batch=REC_PARITY_BATCH, loss_rel_err=loss_err,
+                         grad_max_rel_err=errs[worst], grad_worst=worst)
+    del cpu, want, got
+    gc.collect()
+
+    serve = recsys_inputs(np, rng, arch, cfg, REC_SERVE)
+    serve = tuple(torch.from_numpy(x).cuda() for x in serve)
+    inputs = serve if arch == "two-tower-retrieval" else serve[:-1]
+    card.requires_grad_(False)
+    with torch.no_grad():
+        scores = card(*inputs)
+        check(tuple(scores.shape) == (REC_SERVE,) and
+              bool(torch.isfinite(scores).all()),
+              f"{arch} serve: scores {tuple(scores.shape)}")
+        out["serve_ms"] = call_ms(torch, lambda: card(*inputs), 10)
+
+    b = TWOTOWER_TRAIN if arch == "two-tower-retrieval" else REC_TRAIN
+    micro = DIEN_MICRO if arch == "dien" else 1
+    train = tuple(torch.from_numpy(x).cuda()
+                  for x in recsys_inputs(np, rng, arch, cfg, b))
+    params = dict(card.requires_grad_(True).named_parameters())
+    ocfg = opt_lib.AdamWConfig()
+    state = opt_lib.init(params, ocfg)
+    step = trainer.make_train_step(lambda p, *x: card.loss(*x), ocfg,
+                                   microbatches=micro,
+                                   param_dtype=cfg.torch_dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        _, state, m = step(params, state, train)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+    check(all(math.isfinite(x) for x in losses),
+          f"{arch} train: non-finite loss {losses}")
+    shape = dataclasses.replace(shapes.RECSYS_SHAPES["train_batch"], batch=b)
+    cell = families.recsys_cell(arch, cfg, shape, families.production_mesh())
+    flops = dryrun.count_flops(cell) or None
+    median = statistics.median(ms[1:])
+    out["train"] = dict(
+        batch=b, microbatches=micro, warmup_ms=ms[0], step_ms=ms[1:],
+        step_ms_median=median, losses=losses, matmul_tflop=(
+            flops / 1e12 if flops else None),
+        bound_ms=(flops / FP32_OPS_S * 1e3 if flops else None),
+        bound_by="operations" if flops else None,
+        device_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del card, params, state, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_tower_round(torch, np, args, kernels: list) -> tuple:
+    """(c) Private two-tower retrieval at full width: the two-tower
+    trained RETRIEVAL_STEPS steps of RETRIEVAL_BATCH co-click pairs
+    (`examples.recsys_retrieval.train`); the first stage at
+    ``retrieval_cand`` (1 user x 2^17 and RETRIEVAL_CANDS item-tower rows
+    of 256: score-top-k against its plain version and ``matmul`` +
+    ``topk``); the
+    example's round (`retrieve`) over RETRIEVAL_ITEMS items on the RLWE
+    backend with its launches counted: recall@5 = 1.0 and decrypted scores
+    within 2e-3; then every kernel held against its plain version at the
+    round's shapes (`kernel_phase` over the round's index and the round's
+    one user, the rows appended to ``kernels``' at-shape lists).  Returns
+    (dict, [(path, launches, shapes)])."""
+    from repro_torch.configs import registry
+    from repro_torch.core import planner
+    from repro_torch.examples import recsys_retrieval as ex
+    from repro_torch.kernels import ext
+
+    cfg = registry.get("two-tower-retrieval").config
+    t0 = time.perf_counter()
+    model, loss = ex.train(cfg, steps=RETRIEVAL_STEPS, batch=RETRIEVAL_BATCH,
+                           device="cuda", generator=torch.Generator(
+                               device="cuda").manual_seed(args.seed))
+    torch.cuda.synchronize()
+    out = dict(train_steps=RETRIEVAL_STEPS, train_batch=RETRIEVAL_BATCH,
+               train_loss=loss, train_s=time.perf_counter() - t0)
+    rng = np.random.default_rng(args.seed + 50)
+    feats = rng.integers(0, cfg.item_vocab, (RETRIEVAL_CANDS,
+                                             cfg.n_item_feats))
+    emb = ex.item_embeddings(model, feats.astype(np.int32))
+    user = rng.integers(0, cfg.user_vocab, (1, cfg.n_user_feats))
+    with torch.no_grad():
+        taste = model.user_embedding(user.astype(np.int32))
+    plan = planner.plan(n=emb.shape[1], N=RETRIEVAL_CANDS, k=5, radius=0.1)
+    first = [score_topk_row(torch, taste, emb[:rows], plan.kprime)
+             for rows in (2**17, RETRIEVAL_CANDS)]
+    for row in first:
+        row.update(width=emb.shape[1], cell="retrieval_cand")
+    out["first_stage"] = [{k: row[k] for k in (
+        "shape", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+        "id_mismatches")} for row in first]
+    del emb
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    t0 = time.perf_counter()
+    res = ex.retrieve(model, n_items=RETRIEVAL_ITEMS, k=5,
+                      rng=np.random.default_rng(args.seed + 51),
+                      rlwe_params=paper().RLWE,
+                      generator=torch.Generator(device="cuda").manual_seed(
+                          args.seed))
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    counts = path_launches("two_tower_round", ext.launch_counts())
+    paths = [("two_tower_round", counts, shape_counts(ext.launch_shapes()))]
+    index = res["index"]
+    truth = (index.rows(res["candidate_ids"]).double()
+             @ torch.from_numpy(res["taste"]).cuda().double()).cpu().numpy()
+    score_err = float(np.abs(res["scores"] - truth).max())
+    check(res["recall"] == 1.0,
+          f"two-tower round: recall@5 {res['recall']} (ids {res['ids']}, "
+          f"plaintext {res['oracle']})")
+    check(score_err <= 2e-3, f"two-tower round: decrypted scores off by "
+                             f"{score_err}")
+    out["round"] = dict(items=RETRIEVAL_ITEMS, dim=index.dim,
+                        kprime=res["kprime"], recall_at_5=res["recall"],
+                        max_score_err=score_err,
+                        wire_bytes=res["transcript"].total_bytes,
+                        round_s=round_s, launches=counts)
+    # every kernel at width 256, at the round's shapes
+    rows = kernel_phase(torch, np, args, index, paper().RLWE, res["plan"],
+                        res["taste"][None])
+    by_name = {k["name"]: k for k in kernels}
+    for row in rows:
+        main = by_name[row["name"]]
+        extra = [{k: v for k, v in row.items() if k not in (
+            "name", "route", "source", "replaces", "launches", "at_shapes",
+            "fuses")}] + row.get("at_shapes", [])
+        for r in extra:
+            r["width"] = index.dim
+        main.setdefault("at_shapes", []).extend(extra)
+    by_name["score_topk"]["at_shapes"].extend(first)
+    del model, res, index
+    return out, paths
+
+
+def dryrun_summary(torch) -> list:
+    """(d) Every cell of ``ASSIGNED`` and ``remoterag`` built on the
+    (16, 16) production mesh on ``meta`` tensors: its bytes per rank
+    against the card's 80 GB and, for the GNN, recsys and RemoteRAG
+    cells, its matmul FLOPs (the LM cells' counts take minutes of host
+    time: PERF.md records ``dryrun --all``'s).  A cell that cannot be
+    counted carries its error."""
+    from repro_torch.configs import families, registry
+    from repro_torch.launch import dryrun
+
+    mesh = families.production_mesh()
+    rows = []
+    for arch, entry in registry.REGISTRY.items():
+        for name in entry.shapes:
+            row = dict(arch=arch, shape=name)
+            cell = entry.build_cell(entry.config, entry.shapes[name], mesh)
+            row["built"] = True
+            row["bytes_per_rank"] = dryrun.bytes_per_rank(cell, mesh)
+            row["fits_80gb"] = row["bytes_per_rank"] <= dryrun.H100_HBM_BYTES
+            if entry.family != "lm":
+                try:
+                    row["matmul_flops"] = dryrun.count_flops(cell) or None
+                except Exception as e:   # noqa: BLE001 — recorded, not zero
+                    row["matmul_flops"] = None
+                    row["error"] = f"{type(e).__name__}: {str(e)[:200]}"
+                if row["matmul_flops"] is None and "error" not in row:
+                    row["error"] = "no matmul-class op"
+            rows.append(row)
+    check(len(rows) == 42 and all(r["built"] for r in rows),
+          f"dry run: {len(rows)} cells built")
+    return rows
+
+
+def arch_phase(torch, np, args, kernels: list) -> tuple:
+    """The GNN and recsys models (the ``arch`` phase): (a) `gnn_part`,
+    (b) `recsys_arch` for FM, DCN-v2, DIEN and two-tower, (c)
+    `two_tower_round`, (d) `dryrun_summary`.  Returns (phase dict, [(path,
+    launches, shapes)])."""
+    from repro_torch.kernels import ext
+
+    out, paths = dict(cuts=ARCH_CUTS), []
+    for name, fn in (("gnn", lambda: gnn_part(torch, np, args)),
+                     ("recsys", lambda: [recsys_arch(torch, np, args, a)
+                                         for a in REC_ARCHS])):
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # like the LM paths, the GNN and recsys paths launch none of ours
+        paths.append((name, lm_path(name, ext.launch_counts()),
+                      shape_counts(ext.launch_shapes())))
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["two_tower"], round_paths = two_tower_round(torch, np, args, kernels)
+    out["two_tower_s"] = time.perf_counter() - t0
+    paths += round_paths
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_summary(torch)
+    out["dryrun_s"] = time.perf_counter() - t0
+    return out, paths
+
+
+
 def flat_phases(torch, np, args, emits) -> tuple:
     """Phases 2-7 on the paper config's uniform corpus, in one scope so the
     index, its dense cache and the cache's host pool are freed when it
@@ -3949,7 +4488,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         mesh, mesh_paths = mesh_phase(torch, np, args, first)
         mesh_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Peaks(torch) as pk_arch:
+        t0 = time.perf_counter()
+        arch, arch_paths = arch_phase(torch, np, args, kernels)
+        arch_s = time.perf_counter() - t0
     paths += text_paths + attack_paths + lm_paths + train_paths + mesh_paths
+    paths += arch_paths
     score_row = next(k for k in kernels if k["name"] == "score_topk")
     score_row["at_shapes"] += text_rows + attack_rows
     launch_tally(kernels, paths)
@@ -3973,6 +4519,8 @@ def main(argv=None) -> int:
           **mesh})
     for key, item in items.items():
         emit({"phase": f"mesh_{key}", **item})
+    emit({"phase": "arch", "phase_s": arch_s, "memory": pk_arch.result,
+          **arch})
     emit({"phase": "summary", "build_s": build_s,
           "host_max_rss_gb": resource.getrusage(
               resource.RUSAGE_SELF).ru_maxrss / 1e6,

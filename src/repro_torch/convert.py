@@ -17,6 +17,8 @@ from repro_torch.crypto import paillier as pai
 from repro_torch.crypto import rlwe
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.mesh import ShardSpec
+from repro_torch.models import gnn as gnn_lib
+from repro_torch.models import recsys as rec_lib
 from repro_torch.models.embedder import Embedder
 from repro_torch.models.transformer import Transformer, TransformerConfig
 from repro_torch.retrieval.index import ClusterMap, FlatIndex
@@ -116,29 +118,47 @@ def paillier_secret_key(n: int, g: int, lam: int,
                                  lam=int(lam), mu=int(mu))
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
+def _flatten(tree, prefix: str = "") -> dict:
+    """{dotted name: numpy leaf} of a tree of dicts and lists (a list
+    entry ``i`` is named ``i``)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
     out = {}
-    for name, leaf in tree.items():
-        if isinstance(leaf, dict):
-            out.update(_flatten(leaf, f"{prefix}{name}."))
-        else:
-            out[prefix + name] = np.asarray(leaf)
+    for name, leaf in items:
+        out.update(_flatten(leaf, f"{prefix}{name}."))
     return out
 
 
-def _state_dict(tree: dict, cfg: TransformerConfig) -> dict:
-    """The reference's parameter tree (``embed``, ``layers`` with a leading
-    (n_layers,) axis on every leaf, ``final_norm``, ``unembed``) as a
-    `Transformer` state dict: ``layers.attn.wq[i]`` -> ``layers.{i}.attn.wq``."""
+def _stacked(cfg) -> dict:
+    """{subtree: count} of the reference tree's subtrees whose leaves
+    stack ``count`` layers on a leading axis, for ``cfg``'s model."""
+    if isinstance(cfg, (TransformerConfig, gnn_lib.GnnConfig)):
+        return {"layers": cfg.n_layers}
+    if isinstance(cfg, rec_lib.DcnV2Config):
+        return {"cross": cfg.n_cross_layers}
+    return {}
+
+
+def _state_dict(tree: dict, cfg) -> dict:
+    """The reference's parameter tree of ``cfg``'s model as the port
+    module's state dict: a stacked leaf (`_stacked`) is split, e.g.
+    ``layers.attn.wq[i]`` -> ``layers.{i}.attn.wq`` and ``cross.w[i]`` ->
+    ``cross.{i}.w``; list entries are numbered (``encoder.0.w``)."""
+    stacked = _stacked(cfg)
     state = {}
     for name, leaf in _flatten(tree).items():
-        if name.startswith("layers."):
-            if leaf.shape[0] != cfg.n_layers:
+        head, _, rest = name.partition(".")
+        if head in stacked:
+            n = stacked[head]
+            if leaf.shape[0] != n:
                 raise ValueError(f"{name}: {leaf.shape[0]} stacked layers, "
-                                 f"config has {cfg.n_layers}")
-            rest = name[len("layers."):]
-            for i in range(cfg.n_layers):
-                state[f"layers.{i}.{rest}"] = torch.from_numpy(
+                                 f"config has {n}")
+            for i in range(n):
+                state[f"{head}.{i}.{rest}"] = torch.from_numpy(
                     np.array(leaf[i]))
         else:
             state[name] = torch.from_numpy(np.array(leaf))
@@ -175,12 +195,33 @@ def embedder(tree: dict, cfg: TransformerConfig, *,
     return emb
 
 
-def opt_state(ref_state, cfg: TransformerConfig, *,
+def gnn_params(tree: dict, cfg: gnn_lib.GnnConfig, *,
+               device: DeviceLike = None) -> gnn_lib.Gnn:
+    """A `Gnn` holding the reference's parameters: ``tree`` is the
+    reference's ``gnn.init_params`` tree as nested dicts and lists of
+    numpy arrays (processor layers stacked on a leading axis)."""
+    model = gnn_lib.Gnn(cfg, device=device)
+    model.load_state_dict(_state_dict(tree, cfg), strict=True)
+    return model
+
+
+def recsys_params(arch: str, tree: dict, cfg, *,
+                  device: DeviceLike = None):
+    """``arch``'s recsys model (`recsys.MODELS`) holding the reference's
+    parameters: ``tree`` is the reference's ``*_init`` tree as nested
+    dicts and lists of numpy arrays."""
+    model = rec_lib.MODELS[arch](cfg, device=device)
+    model.load_state_dict(_state_dict(tree, cfg), strict=True)
+    return model
+
+
+def opt_state(ref_state, cfg, *,
               device: DeviceLike = None) -> opt_lib.OptState:
-    """The port's `optimizer.OptState` from a reference ``OptState`` of a
-    `Transformer`'s parameters: (step, master, m, v), the trees as nested
-    dicts of numpy arrays (``jax.tree.map(np.asarray, state)``), copied to
-    ``device`` under the model's state-dict names."""
+    """The port's `optimizer.OptState` from a reference ``OptState`` of the
+    parameters of ``cfg``'s model (a `TransformerConfig`, `GnnConfig` or
+    recsys config): (step, master, m, v), the trees as nested dicts and
+    lists of numpy arrays (``jax.tree.map(np.asarray, state)``), copied
+    to ``device`` under the model's state-dict names."""
     dev = resolve_device(device)
     step, master, m, v = ref_state
     flat = lambda tree: {k: t.to(dev) for k, t in
@@ -228,4 +269,5 @@ def param_specs(spec_tree: dict, cfg: TransformerConfig) -> dict:
 __all__ = ["shard_spec", "param_specs", "cluster_map", "flat_index",
            "candidate_cache", "sharded_candidate_cache", "secret_key",
            "paillier_public_key", "paillier_secret_key",
-           "transformer_params", "embedder", "opt_state"]
+           "transformer_params", "embedder", "gnn_params", "recsys_params",
+           "opt_state"]

@@ -1,7 +1,9 @@
 """Device choice for the port's entry points.
 
 The default is ``cuda``.  A caller that wants the CPU says so with
-``device="cpu"``; there is no silent "cuda if available, else cpu"."""
+``device="cpu"``; there is no silent "cuda if available, else cpu".
+``device="meta"`` builds shapes only (the dry run's cells): a model
+built there allocates nothing and draws no weights."""
 
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "repro_torch runs on cuda by default and no CUDA device is "
             "available; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda" and dev.index is None:
         # the device tensors report: "cuda" and "cuda:0" compare equal after

@@ -91,10 +91,11 @@ def extension():
 
 def on_cuda(x: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU one (run
-    the plain version); raises for any other device."""
+    the plain version) or a ``meta`` one (the plain version's shapes: the
+    dry run); raises for any other device."""
     if x.device.type == "cuda":
         return True
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"unsupported device {x.device}")
 

@@ -32,7 +32,11 @@ def make_param(shape, scale: float, generator: torch.Generator,
                device: torch.device, dtype=torch.float32) -> nn.Parameter:
     """normal x scale, drawn in float32 from ``generator`` on its own
     device and then moved to ``device`` (the reference's ``make_param``,
-    from another random stream)."""
+    from another random stream); on ``meta`` an empty tensor, nothing
+    drawn."""
+    if torch.device(device).type == "meta":
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"),
+                            requires_grad=False)
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device) * scale
     return nn.Parameter(w.to(device=device, dtype=dtype), requires_grad=False)
@@ -302,8 +306,47 @@ def mlp_fwd(p: Mlp, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(g * u, p.w_down)
 
 
+# ---------------------------------------------------------------------------
+# dense stacks (the GNN and recsys models' MLPs)
+# ---------------------------------------------------------------------------
+
+class Dense(nn.Module):
+    """``x @ w + b`` under the reference's ``_mlp_params`` entry names:
+    ``w`` (d_in, d_out) drawn at 1/sqrt(d_in), ``b`` zeros."""
+
+    def __init__(self, d_in: int, d_out: int, generator: torch.Generator,
+                 device: torch.device, dtype=torch.float32):
+        super().__init__()
+        self.w = make_param((d_in, d_out), 1.0 / math.sqrt(d_in), generator,
+                            device, dtype)
+        self.b = make_zeros((d_out,), device, dtype)
+
+    def forward(self, x):
+        return torch.matmul(x, self.w) + self.b
+
+
+def dense_stack(dims, generator: torch.Generator, device: torch.device,
+                dtype=torch.float32) -> nn.ModuleList:
+    """`Dense` layers dims[0] -> dims[1] -> ... (the reference's
+    ``_mlp_params``; state-dict names ``{i}.w``, ``{i}.b``)."""
+    return nn.ModuleList(Dense(dims[i], dims[i + 1], generator, device, dtype)
+                         for i in range(len(dims) - 1))
+
+
+def stack_fwd(stack: nn.ModuleList, x: torch.Tensor, act,
+              final_act: bool = False) -> torch.Tensor:
+    """The reference's ``_mlp``: ``act`` between the layers (and after the
+    last with ``final_act``)."""
+    for i, layer in enumerate(stack):
+        x = layer(x)
+        if i < len(stack) - 1 or final_act:
+            x = act(x)
+    return x
+
+
 __all__ = [
     "make_param", "make_zeros", "make_ones", "rms_norm", "rope_freqs",
     "apply_rope", "chunked_attention", "direct_attention", "AttentionSpec",
-    "Attention", "attention_fwd", "Mlp", "mlp_fwd",
+    "Attention", "attention_fwd", "Mlp", "mlp_fwd", "Dense", "dense_stack",
+    "stack_fwd",
 ]
