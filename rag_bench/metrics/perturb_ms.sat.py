@@ -1,0 +1,8 @@
+"""Host milliseconds in the engine's ``perturb`` spans per completed
+request, over the traced window."""
+
+from rag_bench.metrics_common import stage_ms_per_request
+
+
+def read(run):
+    return stage_ms_per_request(run, "perturb")

@@ -1,0 +1,133 @@
+"""BENCHMARK.json against the benchmark's contract, and every name in it
+resolved to its files."""
+
+import json
+import math
+import re
+from pathlib import Path
+
+import pytest
+
+from rag_bench import manifest
+
+ROOT = Path(__file__).resolve().parents[2]
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
+METRIC_KEYS = {"name", "unit", "better", "source"}
+
+
+def text_ok(s):
+    return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s \
+        and "\t" not in s
+
+
+def test_top_level_keys_and_sizes():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"}
+    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+    assert 1 <= len(BENCH["paths"]) <= 16
+    for p in BENCH["paths"]:
+        assert PATH.match(p) and not p.startswith("/") and ".." not in p
+        assert not p.endswith("_torch")
+    assert 1 <= len(BENCH["command"]) <= 32
+    assert all(text_ok(w) for w in BENCH["command"])
+    assert isinstance(BENCH["run_seconds"], int)
+    assert 1 <= BENCH["run_seconds"] <= 51
+    # a full check of 24 cells fits the driver's budget
+    assert (2 + 14 * 24) * (BENCH["run_seconds"] + 60) + 24 * 180 + 1200 \
+        <= 43200
+
+
+def test_every_file_under_paths_is_named_from_name_characters():
+    for p in BENCH["paths"]:
+        for f in (ROOT / p).rglob("*"):
+            if "__pycache__" in f.parts or not f.is_file():
+                continue
+            rel = f.relative_to(ROOT).as_posix()
+            assert re.match(r"^[A-Za-z0-9_./-]+$", rel), rel
+
+
+def test_names_units_and_texts():
+    seen = set()
+    for group in ("configs", "workloads", "end_to_end", "per_layer"):
+        for e in BENCH[group]:
+            assert NAME.match(e["name"]), e["name"]
+            assert (group, e["name"]) not in seen
+            seen.add((group, e["name"]))
+    for c in BENCH["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert text_ok(c["source"]) and text_ok(c["why"])
+        assert len(c["reduced"]) <= 16
+        assert all(NAME.match(k) for k in c["reduced"])
+    for w in BENCH["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert NAME.match(w["config"]) and NAME.match(w["traffic"])
+        assert w["chips"] in (1, 4) and text_ok(w["why"])
+    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
+    assert len(pairs) == len(set(pairs))
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert UNIT.match(m["unit"]), m["unit"]
+        assert m["better"] in ("lower", "higher")
+    for m in BENCH["end_to_end"]:
+        assert set(m) - {"workloads"} == METRIC_KEYS | {"bound"}
+        assert m["source"] in ("host_clock", "device_trace")
+        assert 0.01 <= m["bound"] <= 0.25
+    for m in BENCH["per_layer"]:
+        assert set(m) - {"workloads"} == METRIC_KEYS | {"layer", "moves"}
+        assert m["source"] in ("device_trace", "program_span",
+                               "program_counter", "host_clock")
+        assert text_ok(m["layer"])
+        if m["name"].endswith("_roofline") or "_roofline." in m["name"]:
+            assert m["unit"] == "%"
+
+
+def test_every_cell_resolves_to_its_files():
+    configs = {c["name"]: c for c in BENCH["configs"]}
+    for w in BENCH["workloads"]:
+        cell = manifest.load_json("cells", w["name"])
+        assert (cell["config"], cell["traffic"]) == (w["config"],
+                                                     w["traffic"])
+        cfg_file = ROOT / configs[w["config"]]["file"]
+        assert json.loads(cfg_file.read_text())["name"] == w["config"]
+        assert cfg_file == manifest.HERE / "configs" / f"{w['config']}.json"
+        assert callable(manifest.load_module("configs",
+                                             w["config"]).make_inputs)
+        traffic = manifest.load_json("traffic", w["traffic"])
+        assert traffic["kind"] in ("closed", "poisson")
+        assert set(cell["limits"]) == {"missing", "cand_gap", "topk_gap",
+                                       "doc_errors", "wire_errors"}
+        assert all(math.isfinite(v) and v >= 0
+                   for v in cell["limits"].values())
+    assert {w["config"] for w in BENCH["workloads"]} == set(configs)
+
+
+def test_every_metric_has_a_reader():
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert callable(manifest.load_module("metrics", m["name"]).read)
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_each_cell_reports_setup_another_metric_and_a_layer(cell):
+    e2e = {m["name"] for m in manifest.end_to_end(BENCH, cell)}
+    assert "setup_s" in e2e and len(e2e) >= 2
+    layers = manifest.per_layer(BENCH, cell)
+    assert layers
+    for m in layers:
+        assert m["moves"] in e2e, (cell, m["name"])
+
+
+def test_per_layer_cells_report_what_they_move():
+    names = {w["name"] for w in BENCH["workloads"]}
+    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    for m in BENCH["per_layer"]:
+        assert m["moves"] in e2e
+        for cell in m.get("workloads", names):
+            assert cell in names
+            assert m["moves"] in {x["name"] for x in
+                                  manifest.end_to_end(BENCH, cell)}
+    layers = {}
+    for m in BENCH["per_layer"]:
+        layers.setdefault(m["layer"].lower(), set()).add(m["layer"])
+    assert all(len(v) == 1 for v in layers.values())
