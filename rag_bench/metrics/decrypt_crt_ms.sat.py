@@ -1,0 +1,9 @@
+"""Host milliseconds in the program's ``decrypt_crt`` spans (the CRT
+extraction of every lane's scores) per completed request, over the traced
+window."""
+
+from rag_bench.metrics_common import stage_ms_per_request
+
+
+def read(run):
+    return stage_ms_per_request(run, "decrypt_crt")

@@ -40,6 +40,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import distancedp, planner
 from repro_torch.core.planner import ProtocolPlan
 from repro_torch.crypto import backend as backends
@@ -214,11 +215,12 @@ class RemoteRagUser:
         self.sk = self.impl.keygen(self)
 
     # -- module 1 + 2a ------------------------------------------------------
-    def encrypt_query(self, e: np.ndarray):
+    def encrypt_query(self, e: np.ndarray, *, tracer=obs.NULL_TRACER):
         """Encrypt the true embedding under this user's key (module 2a,
-        user half).  Shared by make_request and the batched path."""
+        user half).  Shared by make_request and the batched path, which
+        passes its ``tracer`` for the backend's sub-spans."""
         self._e = np.asarray(e, np.float64)
-        return self.impl.encrypt_query(self, self._e)
+        return self.impl.encrypt_query(self, self._e, tracer=tracer)
 
     def make_request(self, e: np.ndarray, generator: torch.Generator) -> Request:
         """``generator`` lives on the user's device and drives DistanceDP."""

@@ -23,6 +23,7 @@ from typing import List, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.crypto import paillier as pai
 from repro_torch.crypto import paillier_vec as pvec
 from repro_torch.crypto import rlwe
@@ -50,8 +51,10 @@ class CryptoBackend(abc.ABC):
         """Key material for a `RemoteRagUser` (reads the user's params/rng)."""
 
     @abc.abstractmethod
-    def encrypt_query(self, user, e: np.ndarray) -> object:
-        """Encrypt one embedding under the user's key (module 2a, user half)."""
+    def encrypt_query(self, user, e: np.ndarray, *,
+                      tracer=obs.NULL_TRACER) -> object:
+        """Encrypt one embedding under the user's key (module 2a, user
+        half); ``tracer`` gets the backend's sub-spans, if it has any."""
 
     @abc.abstractmethod
     def decrypt_reply(self, user, enc_scores) -> np.ndarray:
@@ -90,11 +93,11 @@ class CryptoBackend(abc.ABC):
         batch with ``.lanes()``."""
 
     @abc.abstractmethod
-    def decrypt_scores(self, sks, stacked, *,
-                       device: DeviceLike = None) -> List[np.ndarray]:
+    def decrypt_scores(self, sks, stacked, *, device: DeviceLike = None,
+                       tracer=obs.NULL_TRACER) -> List[np.ndarray]:
         """Batched decryption of a score batch or a per-lane list, on
         ``device`` (``cuda`` unless the caller asks for ``cpu``) where the
-        keys do not fix it."""
+        keys do not fix it; ``tracer`` as in `encrypt_query`."""
 
 
 class RlweBackend(CryptoBackend):
@@ -105,8 +108,8 @@ class RlweBackend(CryptoBackend):
     def keygen(self, user):
         return rlwe.keygen(user.rlwe_params, user.rng, device=user.device)
 
-    def encrypt_query(self, user, e):
-        return rlwe.encrypt_query(user.sk, e, user.rng)
+    def encrypt_query(self, user, e, *, tracer=obs.NULL_TRACER):
+        return rlwe.encrypt_query(user.sk, e, user.rng, tracer=tracer)
 
     def decrypt_reply(self, user, enc_scores):
         return rlwe.decrypt_scores(user.sk, enc_scores)
@@ -146,9 +149,10 @@ class RlweBackend(CryptoBackend):
         return rlwe.encrypted_scores_batch_stacked(
             params, enc, packed, num_cands=kprime, n_dim=cand_rows.shape[-1])
 
-    def decrypt_scores(self, sks, stacked, *, device=None):
+    def decrypt_scores(self, sks, stacked, *, device=None,
+                       tracer=obs.NULL_TRACER):
         # the keys live on their session's device
-        return rlwe.decrypt_scores_batch(sks, stacked)
+        return rlwe.decrypt_scores_batch(sks, stacked, tracer=tracer)
 
 
 @dataclasses.dataclass
@@ -173,7 +177,8 @@ class PaillierBackend(CryptoBackend):
     def keygen(self, user):
         return pai.keygen(user.paillier_bits, rng=user._pai_rng)
 
-    def encrypt_query(self, user, e):
+    def encrypt_query(self, user, e, *, tracer=obs.NULL_TRACER):
+        # no sub-spans: ``tracer`` is accepted and ignored
         return pvec.encrypt_vector(user.sk.pub, e, user._pai_rng,
                                    device=user.device)
 
@@ -204,7 +209,8 @@ class PaillierBackend(CryptoBackend):
             [u.sk.pub for u in users], enc, list(cand_rows),
             device=cloud.device))
 
-    def decrypt_scores(self, sks, stacked, *, device=None):
+    def decrypt_scores(self, sks, stacked, *, device=None,
+                       tracer=obs.NULL_TRACER):
         lanes = stacked.lanes() if isinstance(stacked, PaillierScoreBatch) \
             else list(stacked)
         return pvec.decrypt_scores_batch(sks, lanes, device=device)

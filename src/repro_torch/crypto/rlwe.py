@@ -204,34 +204,41 @@ def keygen(params: RlweParams, rng: np.random.Generator, *,
 # ---------------------------------------------------------------------------
 
 def encrypt_query(sk: RlweSecretKey, e: np.ndarray,
-                  rng: np.random.Generator) -> QueryCiphertext:
+                  rng: np.random.Generator, *,
+                  tracer=obs.NULL_TRACER) -> QueryCiphertext:
     """Encrypt a unit-norm query embedding of any dimension (chunked), on
     the key's device.  The host draws (per chunk: the noise, then one
     uniform ``a`` per prime) keep the reference's order; ``a`` is laid out
     (chunks, P, N) as it is drawn, so one copy to the device is the
     ciphertext's c1 and one key product (`ntt_ops.key_mul`, every prime in
-    one launch on the card) gives a*s."""
+    one launch on the card) gives a*s.  ``tracer`` times the host draws
+    and the host e + Delta*m arithmetic (``encrypt_draw``)."""
     p = sk.params
     dev = sk.s_ntt.device
     n_dim = e.shape[-1]
     chunks = p.num_chunks(n_dim)
-    ints = _fixed_point(e, p.scale_q)
-    m = np.zeros((chunks, p.n_poly), np.int64)
-    err = np.zeros((chunks, p.n_poly), np.int64)
-    a = np.zeros((chunks, p.num_primes, p.n_poly), np.int32)
-    for c in range(chunks):
-        seg = ints[c * p.chunk:(c + 1) * p.chunk]
-        m[c, : len(seg)] = seg
-        # signed (centered) encoding: Delta*m mod q per RNS prime (see the
-        # reference for why an unsigned mod-t lift would break plain-mult)
-        err[c] = _cbd(rng, p.eta, p.n_poly)
-        for i, ctx in enumerate(p.ctxs):
-            a[c, i] = rng.integers(0, ctx.q, size=(p.n_poly,)).astype(np.int32)
-    # e + Delta*m mod q_i on the host, (chunks, P, N): canonical, so the
-    # device sum with a*s below 2q fits int32 and one remainder ends it
-    q = np.array(p.primes, np.int64)[:, None]
-    delta = np.array([p.delta % qi for qi in p.primes], np.int64)[:, None]
-    em = np.mod(err[:, None] + delta * np.mod(m[:, None], q) % q, q)
+    with tracer.span("encrypt_draw"):
+        ints = _fixed_point(e, p.scale_q)
+        m = np.zeros((chunks, p.n_poly), np.int64)
+        err = np.zeros((chunks, p.n_poly), np.int64)
+        a = np.zeros((chunks, p.num_primes, p.n_poly), np.int32)
+        for c in range(chunks):
+            seg = ints[c * p.chunk:(c + 1) * p.chunk]
+            m[c, : len(seg)] = seg
+            # signed (centered) encoding: Delta*m mod q per RNS prime (see
+            # the reference for why an unsigned mod-t lift would break
+            # plain-mult)
+            err[c] = _cbd(rng, p.eta, p.n_poly)
+            for i, ctx in enumerate(p.ctxs):
+                a[c, i] = rng.integers(0, ctx.q,
+                                       size=(p.n_poly,)).astype(np.int32)
+        # e + Delta*m mod q_i on the host, (chunks, P, N): canonical, so
+        # the device sum with a*s below 2q fits int32 and one remainder
+        # ends it
+        q = np.array(p.primes, np.int64)[:, None]
+        delta = np.array([p.delta % qi for qi in p.primes],
+                         np.int64)[:, None]
+        em = np.mod(err[:, None] + delta * np.mod(m[:, None], q) % q, q)
     c1 = torch.from_numpy(a).to(dev)
     a_s = ntt_ops.key_mul(c1, sk.s_ntt, p.ctxs)
     c0 = torch.remainder(a_s + torch.from_numpy(em.astype(np.int32)).to(dev),
@@ -240,17 +247,36 @@ def encrypt_query(sk: RlweSecretKey, e: np.ndarray,
 
 
 def decrypt_rns(params: RlweParams, s_ntt: torch.Tensor, c0: torch.Tensor,
-                c1: torch.Tensor) -> np.ndarray:
+                c1: torch.Tensor, *, tracer=obs.NULL_TRACER) -> np.ndarray:
     """RNS phase of decryption: d = c0 - c1*s over every prime, on the
     device: one key product (`ntt_ops.key_mul`) and one modular
     subtraction.
 
     ``c0``/``c1`` are (..., P, N); ``s_ntt`` broadcasts against the leading
     dims of c1 — (P, N) for one key or (B, 1, P, N) for per-tenant keys.
-    Returns host int64 (..., P, N)."""
+    Returns host int64 (..., P, N).
+
+    An enabled ``tracer`` marks d's device end (`Tracer.mark_device`,
+    stage ``decrypt``) and splits the return to the host in two spans:
+    ``decrypt_wait``, the host blocked on that mark (every earlier device
+    operation in stream order, which the copy would wait for anyway), and
+    ``decrypt_copy``, d's copy to the host and its widening to int64.  The
+    stream is then drained, where `Tracer.anchor_device` anchors the
+    dispatch's device marks."""
     c1s = ntt_ops.key_mul(c1, s_ntt, params.ctxs)
     d = modring.mod_sub(c0, c1s, modring.rns_tables(params.ctxs, c1.device).q)
-    return d.cpu().numpy().astype(np.int64)
+    if not tracer.enabled:
+        return d.cpu().numpy().astype(np.int64)
+    lanes = s_ntt.shape[0] if s_ntt.dim() > 2 else 1
+    ready = tracer.mark_device("decrypt", d.device)
+    with tracer.span("decrypt_wait", lanes=lanes):
+        if ready is not None:
+            ready.synchronize()
+    with tracer.span("decrypt_copy", lanes=lanes,
+                     bytes=d.numel() * d.element_size()):
+        out = d.cpu().numpy().astype(np.int64)
+    tracer.anchor_device()
+    return out
 
 
 def extract_scores(params: RlweParams, d_rns: np.ndarray, n_dim: int,
@@ -285,11 +311,13 @@ def decrypt_scores(sk: RlweSecretKey, res: ScoreCiphertexts) -> np.ndarray:
     return extract_scores(sk.params, d_rns, res.n_dim, res.num_cands)
 
 
-def decrypt_scores_batch(sks: Sequence[RlweSecretKey], cts) -> list:
+def decrypt_scores_batch(sks: Sequence[RlweSecretKey], cts, *,
+                         tracer=obs.NULL_TRACER) -> list:
     """Decrypt B score ciphertexts under B (distinct) tenant keys with one
     key-product launch over every lane and prime; CRT extraction stays per
     lane (host bignums).  ``cts`` is a list of ScoreCiphertexts or a
-    ScoreCiphertextBatch."""
+    ScoreCiphertextBatch.  ``tracer`` gets `decrypt_rns`'s spans and
+    ``decrypt_crt`` around the extraction of every lane."""
     params = sks[0].params
     if isinstance(cts, ScoreCiphertextBatch):
         c0, c1 = cts.c0, cts.c1
@@ -299,9 +327,11 @@ def decrypt_scores_batch(sks: Sequence[RlweSecretKey], cts) -> list:
         c1 = torch.stack([c.c1 for c in cts])
         meta = [(c.n_dim, c.num_cands) for c in cts]
     s_ntt = torch.stack([sk.s_ntt for sk in sks])[:, None]  # (B, 1, P, N)
-    d_rns = decrypt_rns(params, s_ntt, c0, c1)
-    return [extract_scores(params, d_rns[b], nd, nc)
-            for b, (nd, nc) in enumerate(meta)]
+    d_rns = decrypt_rns(params, s_ntt, c0, c1, tracer=tracer)
+    with tracer.span("decrypt_crt", lanes=len(meta),
+                     num_cands=sum(nc for _, nc in meta)):
+        return [extract_scores(params, d_rns[b], nd, nc)
+                for b, (nd, nc) in enumerate(meta)]
 
 
 # ---------------------------------------------------------------------------

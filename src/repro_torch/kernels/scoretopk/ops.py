@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.ext import on_cuda
 from repro_torch.kernels.scoretopk import ref as _ref
 from repro_torch.kernels.scoretopk import scoretopk as _kern
@@ -23,13 +24,16 @@ class TopK(NamedTuple):
 
 
 def topk_scores(queries: torch.Tensor, corpus: torch.Tensor, k: int, *,
-                tile: int = 2048, per_tile_k: int | None = None) -> TopK:
+                tile: int = 2048, per_tile_k: int | None = None,
+                tracer=obs.NULL_TRACER) -> TopK:
     """Exact top-k inner-product search.
 
     ``per_tile_k`` < k trades selection work for a (checked) exactness
     certificate: the merged result is exact iff no tile contributed all of
     its per-tile candidates.  Default per_tile_k = min(k, tile), always
-    exact.
+    exact.  ``tracer`` times the certificate up to its host bool
+    (``topk_certificate``, with the bool as ``ok``); the host waits there
+    for the scan and the merge still queued before it.
     """
     n_rows = corpus.shape[0]
     k = min(k, n_rows)
@@ -40,7 +44,13 @@ def topk_scores(queries: torch.Tensor, corpus: torch.Tensor, k: int, *,
     else:
         vals, gidx = _ref.tile_topk_ref(queries, corpus, kk, tile)
     mv, mi = _ref.merge_tiles_ref(vals, gidx, k)
-    exact = _certificate(gidx, mi, kk) if kk < k else True
+    exact = True
+    if kk < k:
+        with tracer.span("topk_certificate", lanes=queries.shape[0],
+                         kprime=k) as late:
+            exact = _certificate(gidx, mi, kk)
+            if late is not None:
+                late["ok"] = exact
     return TopK(mv, mi, exact)
 
 

@@ -6,7 +6,9 @@ directly: complete ("X") duration events in microseconds, one thread row
 per span *track* — "engine" for batched stages, "admitter" for the
 sharded cache's background thread, "request-<id>" rows for per-request
 spans — so a batch's lane-parallel structure and the admission copy
-overlapping encrypt are visible on a real timeline.
+overlapping encrypt are visible on a real timeline.  The ``device`` track
+(the ``<stage>_device`` spans: where each batched step ended on the card)
+is a process row of its own, below the host's.
 
 Only the span schema's whitelisted scalars reach ``args``; the exporter
 adds nothing beyond ids already on the span.
@@ -17,9 +19,10 @@ from __future__ import annotations
 import json
 from typing import Dict, List, Optional, Sequence
 
-from repro_torch.obs.trace import Span
+from repro_torch.obs.trace import DEVICE_TRACK, Span
 
 _PID = 1                         # single-process engine
+_DEVICE_PID = 2                  # the card's row
 
 
 def chrome_trace_events(spans: Sequence[Span]) -> List[dict]:
@@ -31,13 +34,20 @@ def chrome_trace_events(spans: Sequence[Span]) -> List[dict]:
     tids: Dict[str, int] = {}
     events: List[dict] = []
     for span in spans:
+        pid = _DEVICE_PID if span.track == DEVICE_TRACK else _PID
         tid = tids.get(span.track)
         if tid is None:
             # "engine" first keeps the main pipeline as the top row
-            tid = tids[span.track] = 1 if span.track == "engine" \
+            tid = tids[span.track] = 1 if span.track in ("engine",
+                                                         DEVICE_TRACK) \
                 else len(tids) + 1
+            if pid == _DEVICE_PID:
+                events.append({
+                    "name": "process_name", "ph": "M", "pid": pid,
+                    "args": {"name": DEVICE_TRACK},
+                })
             events.append({
-                "name": "thread_name", "ph": "M", "pid": _PID, "tid": tid,
+                "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
                 "args": {"name": span.track},
             })
         args = dict(span.attrs)
@@ -50,7 +60,7 @@ def chrome_trace_events(spans: Sequence[Span]) -> List[dict]:
             "ph": "X",
             "ts": round((span.t_start - t0) * 1e6, 3),
             "dur": round(span.duration_s * 1e6, 3),
-            "pid": _PID,
+            "pid": pid,
             "tid": tid,
             "args": args,
         })

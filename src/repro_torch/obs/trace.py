@@ -20,6 +20,16 @@ the stage-level p50/p99 profile stays complete even after the ring wraps.
 Tracing is off by default — `NULL_TRACER` is a shared no-op sink whose
 `span()` returns a reusable empty context manager, keeping the disabled
 cost to a dict build and an attribute lookup per call site.
+
+While enabled, every span also opens a ``torch.profiler.record_function``
+range named ``repro_torch/<span name>``, so a profiler trace of the
+engine carries the program's spans beside the kernels, on the profiler's
+own clock.  `Tracer.bind` hands a tracer down to the code that records
+sub-spans (decryption's wait, copy and CRT, encryption's draws, the
+first stage's certificate) with the caller's span keywords fixed; a
+binding made with a CUDA ``device`` also keeps the timing events that
+end a dispatch's device steps and turns them into ``<stage>_device``
+spans on the ``device`` track, on the tracer's clock.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ from contextlib import contextmanager
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+from torch.profiler import record_function
 
 from repro_torch.obs.histogram import StageHistogram, summarize
 
@@ -177,23 +189,36 @@ class Tracer:
             hist.record(span.duration_s)
         return span
 
-    @contextmanager
     def span(self, name: str, *, track: str = "engine",
              request_id: Optional[int] = None,
              batch_id: Optional[int] = None, **attrs):
         """Time a block.  If the body raises, the span is still recorded —
         with the exception *class name* only — and the exception
-        propagates (fault attribution stays visible on the timeline)."""
-        t0 = self.clock()
-        try:
-            yield
-        except Exception as e:
-            self.record(name, t0, self.clock(), track=track,
-                        request_id=request_id, batch_id=batch_id,
-                        error_type=type(e).__name__, **attrs)
-            raise
-        self.record(name, t0, self.clock(), track=track,
-                    request_id=request_id, batch_id=batch_id, **attrs)
+        propagates (fault attribution stays visible on the timeline).
+        Yields a dict: attrs the body learns (a certificate's ``ok``) are
+        put there and recorded with the span.  The block runs inside a
+        ``record_function`` range ``repro_torch/<name>``."""
+        return _timed(self, name, dict(track=track, request_id=request_id,
+                                       batch_id=batch_id, **attrs))
+
+    def bind(self, *, device=None, **span_kw) -> "BoundTracer":
+        """This tracer with ``span_kw`` (track, request_id, batch_id,
+        attrs) fixed on every span and record made through the
+        result.  With a CUDA ``device`` the binding keeps a dispatch's
+        device marks (`BoundTracer.mark_device`)."""
+        dev = None if device is None else torch.device(device)
+        marks = _DeviceMarks() if dev is not None and dev.type == "cuda" \
+            else None
+        return BoundTracer(self, span_kw, marks)
+
+    def mark_device(self, stage: str, device) -> Optional["torch.cuda.Event"]:
+        """A timing event recorded now on ``device``'s current stream, or
+        None off CUDA.  Unbound, the event is kept by no one: the caller
+        may wait on it."""
+        return _cuda_event(device)
+
+    def anchor_device(self) -> None:
+        """See `BoundTracer.anchor_device`; unbound, nothing to anchor."""
 
     def event(self, name: str, *, track: str = "engine",
               request_id: Optional[int] = None,
@@ -246,11 +271,112 @@ class Tracer:
             self.dropped = 0
 
 
+DEVICE_TRACK = "device"      # the Chrome export's row of <stage>_device spans
+
+
+@contextmanager
+def _timed(tracer: Tracer, name: str, kw: dict):
+    """`Tracer.span`'s body, recording through ``tracer.record``."""
+    late: dict = {}
+    t0 = tracer.clock()
+    try:
+        with record_function(f"repro_torch/{name}"):
+            yield late
+    except Exception as e:
+        tracer.record(name, t0, tracer.clock(),
+                      **{**kw, **late, "error_type": type(e).__name__})
+        raise
+    tracer.record(name, t0, tracer.clock(), **{**kw, **late})
+
+
+def _cuda_event(device) -> Optional["torch.cuda.Event"]:
+    if torch.device(device).type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+class _DeviceMarks:
+    """One dispatch's device marks: (stage, event) in the order recorded,
+    and the anchor (an event recorded on a drained stream, with the host
+    clock read beside it)."""
+
+    def __init__(self) -> None:
+        self.marks: List[tuple] = []
+        self.anchor: Optional[tuple] = None
+
+
+class BoundTracer:
+    """A `Tracer` with span keywords fixed (`Tracer.bind`), passed down as
+    ``tracer=`` to the code that records sub-spans.  Records through the
+    tracer's own ``record``, so a subclass's override of it sees every
+    sub-span."""
+
+    enabled = True
+
+    def __init__(self, tracer: Tracer, span_kw: dict,
+                 marks: Optional[_DeviceMarks] = None) -> None:
+        self.tracer = tracer
+        self.clock = tracer.clock
+        self._kw = span_kw
+        self._marks = marks
+
+    def span(self, name: str, **kw):
+        return _timed(self.tracer, name, {**self._kw, **kw})
+
+    def record(self, name: str, t_start: float, t_end: float, **kw):
+        return self.tracer.record(name, t_start, t_end, **{**self._kw, **kw})
+
+    def bind(self, **span_kw) -> "BoundTracer":
+        """A narrower binding that shares this one's device marks."""
+        return BoundTracer(self.tracer, {**self._kw, **span_kw}, self._marks)
+
+    def mark_device(self, stage: str, device) -> Optional["torch.cuda.Event"]:
+        """Record a timing event now on ``device``'s current stream (None
+        off CUDA): the device end of ``stage``, kept in the binding's
+        marks when it has them."""
+        ev = _cuda_event(device)
+        if ev is not None and self._marks is not None:
+            self._marks.marks.append((stage, ev))
+        return ev
+
+    def anchor_device(self) -> None:
+        """Right after a blocking copy to the host: the stream is drained,
+        so an event recorded now runs at the host clock's reading beside
+        it, to within a launch.  Maps the marks onto the tracer's clock."""
+        if self._marks is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self._marks.anchor = (ev, self.clock())
+
+    def record_device_spans(self, stages, **attrs) -> int:
+        """``<stage>_device`` spans on the ``device`` track, one for each
+        of ``stages``: from the previous mark's device time (the first
+        mark opens the first) to the stage's own.  The marks must be a
+        start mark followed by ``stages`` once each, in order, and the
+        anchor must be complete (it is, once a blocking copy returned; no
+        synchronisation here): otherwise nothing is recorded.  Returns the
+        number of spans recorded."""
+        m = self._marks
+        if m is None or m.anchor is None or \
+                [s for s, _ in m.marks[1:]] != list(stages):
+            return 0
+        anchor, t_anchor = m.anchor
+        if not anchor.query():
+            return 0
+        ends = [t_anchor - ev.elapsed_time(anchor) / 1e3 for _, ev in m.marks]
+        for stage, t0, t1 in zip(stages, ends, ends[1:]):
+            self.record(f"{stage}_device", t0, t1, track=DEVICE_TRACK,
+                        **attrs)
+        return len(stages)
+
+
 class _NullSpan:
     __slots__ = ()
 
     def __enter__(self):
-        return self
+        return None         # no late attrs to keep
 
     def __exit__(self, exc_type, exc, tb):
         return False
@@ -278,6 +404,18 @@ class NullTracer:
     def event(self, name, **kwargs):
         return None
 
+    def bind(self, **kwargs):
+        return self
+
+    def mark_device(self, stage, device):
+        return None
+
+    def anchor_device(self):
+        pass
+
+    def record_device_spans(self, stages, **attrs):
+        return 0
+
     def spans(self):
         return []
 
@@ -295,4 +433,4 @@ class NullTracer:
 NULL_TRACER = NullTracer()
 
 __all__ = ["ALLOWED_ATTR_KEYS", "validate_attrs", "Span", "Tracer",
-           "NullTracer", "NULL_TRACER"]
+           "BoundTracer", "NullTracer", "NULL_TRACER", "DEVICE_TRACK"]

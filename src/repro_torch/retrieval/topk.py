@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.scoretopk import ops as sops
 from repro_torch.kernels.scoretopk import ref as sref
 from repro_torch.launch import mesh as mesh_lib
@@ -105,18 +106,20 @@ def make_sharded_topk(mesh, axes, n_rows: int, k: int, *, tile: int = 2048,
 
 
 def distributed_topk(index, queries, k: int, *, tile: int = 2048,
-                     per_tile_k: Optional[int] = None) -> SearchResult:
+                     per_tile_k: Optional[int] = None,
+                     tracer=obs.NULL_TRACER) -> SearchResult:
     """Exact top-k of <query, corpus row> over a `FlatIndex` or a
     `CorpusView`: on one device, or over the mesh a mesh-built index is
     sharded on (`make_sharded_topk`; ``num_rows`` counts the padding, as
-    in the reference)."""
+    in the reference).  ``tracer`` reaches the one-device scan's
+    certificate span; the mesh search records none."""
     if getattr(index, "mesh", None) is not None:
         search = make_sharded_topk(index.mesh, index.row_axes, index.num_rows,
                                    k, tile=tile, per_tile_k=per_tile_k)
         return search(queries, index.embeddings)
     out = sops.topk_scores(_queries(index.embeddings, queries),
                            index.embeddings, k, tile=tile,
-                           per_tile_k=per_tile_k)
+                           per_tile_k=per_tile_k, tracer=tracer)
     return SearchResult(out.values, out.indices, out.exact)
 
 
@@ -197,15 +200,17 @@ def cluster_topk(view, queries, k: int, *, nprobe: Optional[int] = None,
                         exact and probe == num_clusters)
 
 
-def search_view(view, queries, k: int, *,
-                nprobe: Optional[int] = None) -> SearchResult:
+def search_view(view, queries, k: int, *, nprobe: Optional[int] = None,
+                tracer=obs.NULL_TRACER) -> SearchResult:
     """The serve layer's first-stage search over a `FlatIndex` or a pinned
     `CorpusView`: with ``nprobe`` set on a corpus with a cluster map, the
     IVF-routed scan (`cluster_topk`); otherwise the exact flat scan
-    (``nprobe`` is ignored without a cluster map, as in the reference)."""
+    (``nprobe`` is ignored without a cluster map, as in the reference).
+    ``tracer`` goes to the flat scan only; the IVF scan records no
+    sub-span."""
     if nprobe is not None and getattr(view, "cluster_map", None) is not None:
         return cluster_topk(view, queries, k, nprobe=nprobe)
-    return distributed_topk(view, queries, k)
+    return distributed_topk(view, queries, k, tracer=tracer)
 
 
 def distances_from_scores(values):

@@ -24,6 +24,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import distancedp
 from repro_torch.crypto import backend as crypto_backend
 from repro_torch.crypto import paillier_vec
@@ -47,16 +48,17 @@ def perturb_batch(generators: Sequence[torch.Generator], E: np.ndarray,
                         for b, (g, eps) in enumerate(zip(generators, epss))])
 
 
-def topk_batch(index, perturbed, kprime: int, *,
-               nprobe=None) -> SearchResult:
+def topk_batch(index, perturbed, kprime: int, *, nprobe=None,
+               tracer=obs.NULL_TRACER) -> SearchResult:
     """All B perturbed queries through the score-top-k kernel in one
     launch, on the device of ``index`` (a `FlatIndex` or an epoch-pinned
     `CorpusView`).  With ``nprobe`` set on a corpus with a cluster map the
     scan routes through `cluster_topk` (only the ``nprobe`` nearest
-    clusters' slices per query); otherwise the exact flat scan."""
+    clusters' slices per query); otherwise the exact flat scan, whose
+    certificate ``tracer`` times (`search_view`)."""
     q = torch.as_tensor(perturbed, dtype=torch.float32,
                         device=index.embeddings.device)
-    return search_view(index, q, kprime, nprobe=nprobe)
+    return search_view(index, q, kprime, nprobe=nprobe, tracer=tracer)
 
 
 # The batched re-rank crypto lives with the scheme; re-exported here as

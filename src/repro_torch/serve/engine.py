@@ -194,6 +194,11 @@ class ServeResult:
         return self.error is None
 
 
+# the batched steps whose device ends a traced CUDA dispatch marks, in
+# stream order (`ServeEngine._run_batched_stages`)
+DEVICE_STEPS = ("perturb", "topk", "encrypt", "score", "decrypt")
+
+
 def _no_agreement(stage: str, failed: Sequence[bool]) -> None:
     """The agreement hook of an engine over no mesh: nothing to agree."""
 
@@ -1002,7 +1007,8 @@ class ServeEngine:
         bisected re-run or a solo retry reproduces the lane's noise."""
         return torch.Generator(device=self.device).manual_seed(int(key))
 
-    def _search_topk(self, perturbed, kprime: int) -> np.ndarray:
+    def _search_topk(self, perturbed, kprime: int, *,
+                     tracer=obs.NULL_TRACER) -> np.ndarray:
         """Module 2a, cloud half: the (B, k') host candidate-id block for a
         (B, n) block of perturbed embeddings.  The default scans the
         engine's pinned `CorpusView` (through the IVF first stage when
@@ -1011,15 +1017,16 @@ class ServeEngine:
         block out to every replica's slice and merges, by contract bit for
         bit the full scan.  Must stay a pure function of (perturbed,
         kprime): `_bisect_lanes` re-runs arbitrary row subsets through it
-        for fault attribution."""
+        for fault attribution.  ``tracer`` reaches the flat scan's
+        certificate span; an injected searcher gets none."""
         if self._searcher is not None:
             return np.asarray(self._searcher(perturbed, kprime))
         # a collective search: every rank must get here (see _agree)
         self._agree("search", [False])
         try:
             return batching.topk_batch(
-                self.view, perturbed, kprime,
-                nprobe=self.config.nprobe).indices.cpu().numpy()
+                self.view, perturbed, kprime, nprobe=self.config.nprobe,
+                tracer=tracer).indices.cpu().numpy()
         except MeshDivergence:
             # the search's row group parted ways: tell the ranks of the
             # other row groups, which raise at their next agreement
@@ -1079,7 +1086,13 @@ class ServeEngine:
         attribute directly (`_lane_stage`).  Surviving lanes are re-batched
         (compacted) after every stage and carry their already-computed
         state forward — a healthy lane's query is encrypted exactly once,
-        whatever its batchmates do."""
+        whatever its batchmates do.
+
+        Traced, the stages hand a binding of the tracer (``btr``) down to
+        their sub-spans; on CUDA it also marks the device end of each
+        batched step (decryption's inside `rlwe.decrypt_rns`, which
+        anchors the marks after d's copy), and a dispatch that kept every
+        lane records them as ``<stage>_device`` spans at its end."""
         sessions = [self.sessions.get(r.tenant) for r in batch]
         users = [s.user for s in sessions]
         backend = users[0].backend
@@ -1087,6 +1100,8 @@ class ServeEngine:
         kprime = users[0].plan.kprime
         params = self.sessions.rlwe_params
         tr = self.tracer
+        btr = tr.bind(batch_id=bid, device=self.device)
+        btr.mark_device("start", self.device)
 
         poisoned: List[tuple] = []
         alive = list(range(len(batch)))
@@ -1111,6 +1126,7 @@ class ServeEngine:
                     device=self.device)),
                 alive, tracer=tr, batch_id=bid, stage="perturb",
                 agree=self._agree)
+            btr.mark_device("perturb", self.device)
         drop(bad)
         if not alive:
             return [], poisoned
@@ -1126,9 +1142,11 @@ class ServeEngine:
                      kprime=kprime):
             cand, bad = _bisect_lanes(
                 lambda ls: list(self._search_topk(
-                    torch.stack([pert[lane] for lane in ls]), kprime)),
+                    torch.stack([pert[lane] for lane in ls]), kprime,
+                    tracer=btr)),
                 alive, tracer=tr, batch_id=bid, stage="topk",
                 agree=self._agree)
+            btr.mark_device("topk", self.device)
         drop(bad)
         if not alive:
             return [], poisoned
@@ -1160,10 +1178,14 @@ class ServeEngine:
                          request_id=req.request_id, batch_id=bid,
                          tenant=req.tenant, lane=lane):
                 with sessions[lane].lock:   # rng draw vs. the retry lane
-                    return users[lane].encrypt_query(req.embedding)
+                    return users[lane].encrypt_query(
+                        req.embedding, tracer=btr.bind(
+                            track=f"request-{req.request_id}",
+                            request_id=req.request_id, lane=lane))
 
         enc, bad = _lane_stage(encrypt, alive, stage="encrypt",
                                agree=self._agree)
+        btr.mark_device("encrypt", self.device)
         drop(bad)
         if not alive:
             return [], poisoned
@@ -1197,6 +1219,7 @@ class ServeEngine:
             cts, bad = _bisect_lanes(score, alive, tracer=tr,
                                      batch_id=bid, stage="score",
                                      agree=self._agree)
+            btr.mark_device("score", self.device)
         if bad:
             full_stack.clear()            # stack no longer matches alive
         drop(bad)
@@ -1210,7 +1233,8 @@ class ServeEngine:
                        if full_stack and len(ls) == len(alive)
                        else [cts[lane] for lane in ls])
             return impl.decrypt_scores([users[lane].sk for lane in ls],
-                                       stacked, device=self.device)
+                                       stacked, device=self.device,
+                                       tracer=btr)
 
         with tr.span("decrypt", batch_id=bid, lanes=len(alive)):
             scores, bad = _bisect_lanes(decrypt, alive, tracer=tr,
@@ -1243,8 +1267,10 @@ class ServeEngine:
         done, bad = _lane_stage(finish, alive, stage="finish",
                                 agree=self._agree)
         drop(bad)
+        if not poisoned:
+            btr.record_device_spans(DEVICE_STEPS, lanes=len(alive))
         return [done[lane] for lane in alive], poisoned
 
 
 __all__ = ["EngineConfig", "ServeRequest", "ServeResult", "ServeEngine",
-           "MeshDivergence"]
+           "MeshDivergence", "DEVICE_STEPS"]

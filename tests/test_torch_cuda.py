@@ -1098,3 +1098,128 @@ def test_world1_nccl_moe_sharded_equals_einsum(cuda, nccl_world):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert torch.equal(got, want) and torch.equal(got_aux, want_aux)
+
+
+def _kineto(prof):
+    """(user ranges, device operations, launch times, event records) of a
+    profiler session: ranges as (start_ns, end_ns, name), operations as
+    (start_ns, end_ns, correlation id), launches {correlation id:
+    start_ns}, the host's ``cudaEventRecord`` calls as sorted (start_ns,
+    end_ns)."""
+    cuda_type = torch.autograd.DeviceType.CUDA
+    ranges, ops, launch, records = [], [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda_type:
+            if not e.is_user_annotation():
+                s = e.start_ns()
+                ops.append((s, s + e.duration_ns(), e.correlation_id()))
+        elif e.is_user_annotation():
+            ranges.append((e.start_ns(), e.end_ns(), e.name()))
+        elif e.name().startswith("cu"):
+            launch[e.correlation_id()] = e.start_ns()
+            if e.name().startswith("cudaEventRecord"):
+                records.append((e.start_ns(), e.end_ns()))
+    return ranges, ops, launch, sorted(records)
+
+
+def test_device_stage_spans_end_with_their_stages_on_card(cuda):
+    """A traced engine batch of 4 on the card (10^5 x 256, RLWE N 4096),
+    the second of a `torch.profiler` session: the ``<stage>_device`` spans
+    come in stage order, tile the dispatch's device timeline, end at or
+    before d's copy returns, and each ends within 50 us of the later of
+    two points: the end of the last device operation launched inside its
+    stage's ``repro_torch/<stage>`` range (decrypt: before
+    ``decrypt_copy``), and the host's record of its mark (where the device
+    idled before it, as at this size with the profiler on).  The
+    profiler's clock is mapped onto the tracer's by the host spans' own
+    ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.retrieval.index import FlatIndex
+    from repro_torch.serve import EngineConfig, ServeEngine
+    from repro_torch.serve.engine import DEVICE_STEPS
+    from repro_torch.serve.session import SessionManager
+
+    rng = np.random.default_rng(26)
+    e = rng.normal(size=(100_000, 256)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    eng = ServeEngine(
+        FlatIndex.build(e, documents=[b"d"] * len(e), normalize=False,
+                        device=cuda),
+        config=EngineConfig(max_batch=4, max_wait_s=30.0, trace=True),
+        sessions=SessionManager(deterministic_seeds=True, device=cuda))
+    for t in ("a", "b"):
+        eng.open_session(t, n=256, N=len(e), k=5, plan_kwargs={"kprime": 161})
+    queries = e[rng.integers(len(e), size=8)]
+
+    def batch(qs):
+        for i, q in enumerate(qs):
+            eng.submit("ab"[i % 2], q, key=i)
+        assert all(r.ok for r in eng.drain())
+
+    batch(queries[:4])                      # builds, warms up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the profiler's first device timestamps of a session sit up to
+        # ~0.3 ms off its host clock: the second batch is the one read
+        batch(queries[:4])
+        batch(queries[4:])
+        torch.cuda.synchronize()
+    eng.close()
+    spans = eng.tracer.spans()
+    bid = max(s.batch_id for s in spans if s.batch_id is not None)
+    mine = [s for s in spans if s.batch_id == bid]
+    dev = [s for s in mine if s.track == obs.DEVICE_TRACK]
+    assert [s.name for s in dev] == [f"{s}_device" for s in DEVICE_STEPS]
+    assert all(s.attrs == {"lanes": 4} for s in dev)
+    for a, b in zip(dev, dev[1:]):
+        assert a.t_end == pytest.approx(b.t_start, abs=1e-9)
+        assert a.duration_s >= 0
+    (copy,) = [s for s in mine if s.name == "decrypt_copy"]
+    assert dev[-1].t_end <= copy.t_end
+
+    ranges, ops, launch, records = _kineto(prof)
+    d0, d1 = max(r[:2] for r in ranges if r[2] == "repro_torch/dispatch")
+    ranges = [r for r in ranges if d0 <= r[0] <= d1]
+    # the profiler's s less the tracer's: a host span reads the clock,
+    # opens its range, closes it and reads the clock again, so the offset
+    # is at most each range's start less its span's start and at least
+    # each range's end less its span's end
+    hi, lo = np.inf, -np.inf
+    for name in ("dispatch", "perturb", "topk", "score", "decrypt",
+                 "decrypt_copy", "decrypt_crt"):
+        rs = sorted(r for r in ranges if r[2] == f"repro_torch/{name}")
+        ss = sorted((s for s in mine if s.name == name),
+                    key=lambda s: s.t_start)
+        assert len(rs) == len(ss), name
+        for r, s in zip(rs, ss):
+            hi = min(hi, r[0] / 1e9 - s.t_start)
+            lo = max(lo, r[1] / 1e9 - s.t_end)
+    off = (lo + hi) / 2
+
+    def inside(t, name):
+        return any(r0 <= t < r1 for r0, r1, n in ranges
+                   if n == f"repro_torch/{name}")
+
+    # a mark runs on the device when its stage's last operation has ended
+    # and the host has recorded it (the first cudaEventRecord after that
+    # operation's launch), whichever is later
+    gaps = []
+    for span, stage in zip(dev, DEVICE_STEPS):
+        last = max(((e1, launch[corr]) for _, e1, corr in ops
+                    if corr in launch and inside(launch[corr], stage)
+                    and not inside(launch[corr], "decrypt_copy")),
+                   default=None)
+        assert last is not None, stage
+        rec = min((r1 for r0, r1 in records if r0 >= last[1]),
+                  default=np.inf)
+        end = (span.t_end + off) * 1e9
+        gaps.append((stage, (end - last[0]) / 1e3, (end - rec) / 1e3))
+    print(f"offset within {hi - lo:.3g} s; device end less (the last "
+          f"operation's end, the mark's record call's end), us: {gaps}")
+    assert -2e-6 <= hi - lo <= 20e-6, (lo, hi)
+    for stage, after_op, after_rec in gaps:
+        assert after_op >= -20, (stage, after_op)
+        assert abs(min(after_op, after_rec)) <= 50, stage
