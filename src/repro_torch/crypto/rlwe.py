@@ -15,7 +15,8 @@ Host randomness is the reference's: keygen and encryption draw from a
 bit-identical to the JAX package's.  Everything else runs on the device of
 the key (user side) or of the candidate cache (cloud side) through
 `repro_torch.kernels.ntt.ops`, which launches the CUDA kernels on CUDA
-tensors.  The bignum CRT lift of decryption stays on the host.
+tensors.  Decryption's CRT lift runs there too, exactly in int64, so only
+the scores return to the host.
 """
 
 from __future__ import annotations
@@ -246,37 +247,25 @@ def encrypt_query(sk: RlweSecretKey, e: np.ndarray,
     return QueryCiphertext(c0=c0, c1=c1, n_dim=n_dim)
 
 
+def _decrypt_d(params: RlweParams, s_ntt: torch.Tensor, c0: torch.Tensor,
+               c1: torch.Tensor) -> torch.Tensor:
+    """d = c0 - c1*s over every prime, on the key's device: one key product
+    (`ntt_ops.key_mul`) and one modular subtraction; int32 (..., P, N)."""
+    c1s = ntt_ops.key_mul(c1, s_ntt, params.ctxs)
+    return modring.mod_sub(c0, c1s, modring.rns_tables(params.ctxs, c1.device).q)
+
+
 def decrypt_rns(params: RlweParams, s_ntt: torch.Tensor, c0: torch.Tensor,
-                c1: torch.Tensor, *, tracer=obs.NULL_TRACER) -> np.ndarray:
-    """RNS phase of decryption: d = c0 - c1*s over every prime, on the
-    device: one key product (`ntt_ops.key_mul`) and one modular
-    subtraction.
+                c1: torch.Tensor) -> np.ndarray:
+    """RNS phase of decryption: d = c0 - c1*s over every prime, as
+    host int64 (..., P, N) — the counterpart of the reference's
+    ``decrypt_rns``, for callers that want all of d.
 
     ``c0``/``c1`` are (..., P, N); ``s_ntt`` broadcasts against the leading
     dims of c1 — (P, N) for one key or (B, 1, P, N) for per-tenant keys.
-    Returns host int64 (..., P, N).
-
-    An enabled ``tracer`` marks d's device end (`Tracer.mark_device`,
-    stage ``decrypt``) and splits the return to the host in two spans:
-    ``decrypt_wait``, the host blocked on that mark (every earlier device
-    operation in stream order, which the copy would wait for anyway), and
-    ``decrypt_copy``, d's copy to the host and its widening to int64.  The
-    stream is then drained, where `Tracer.anchor_device` anchors the
-    dispatch's device marks."""
-    c1s = ntt_ops.key_mul(c1, s_ntt, params.ctxs)
-    d = modring.mod_sub(c0, c1s, modring.rns_tables(params.ctxs, c1.device).q)
-    if not tracer.enabled:
-        return d.cpu().numpy().astype(np.int64)
-    lanes = s_ntt.shape[0] if s_ntt.dim() > 2 else 1
-    ready = tracer.mark_device("decrypt", d.device)
-    with tracer.span("decrypt_wait", lanes=lanes):
-        if ready is not None:
-            ready.synchronize()
-    with tracer.span("decrypt_copy", lanes=lanes,
-                     bytes=d.numel() * d.element_size()):
-        out = d.cpu().numpy().astype(np.int64)
-    tracer.anchor_device()
-    return out
+    Decryption of scores (`decrypt_scores_batch`) does not copy d: it
+    reads the extraction coefficients on the device."""
+    return _decrypt_d(params, s_ntt, c0, c1).cpu().numpy().astype(np.int64)
 
 
 def extract_scores(params: RlweParams, d_rns: np.ndarray, n_dim: int,
@@ -305,19 +294,90 @@ def extract_scores(params: RlweParams, d_rns: np.ndarray, n_dim: int,
     return out
 
 
+def _extraction_index(params: RlweParams, n_dim: int, num_cands: int,
+                      device: torch.device) -> tuple:
+    """(ciphertext, coefficient) of candidates 0..num_cands-1, as
+    `extract_scores` reads them: int64 (num_cands,) each, on ``device``."""
+    cpt = params.cands_per_ct(n_dim)
+    cand = torch.arange(num_cands, device=device)
+    return (torch.div(cand, cpt, rounding_mode="floor"),
+            cand % cpt * params.stride(n_dim) + params.chunk - 1)
+
+
+def _lift_scores(params: RlweParams, r: torch.Tensor) -> torch.Tensor:
+    """`extract_scores`' lift of residues ``r`` (..., P) of x in [0, Q),
+    in int64 tensor ops on r's device: float64 scores (...).
+
+    Garner's mixed radix gives x = v_0 + q_0 v_1 + ... + q_0..q_{P-2}
+    v_{P-1} with v_i in [0, q_i); carrying t*x through the same radix
+    gives floor(t*x / Q) and the remainder's digits, and the remainder
+    against Q // 2 (digit by digit from the top; Q is odd, so no ties)
+    rounds it.  Centring x first shifts the quotient by exactly t, which
+    the final mod t removes.  Every intermediate stays below
+    max(q_i q_j, t (q_i + 1)) < 2^62 for primes below 2^31 and t < 2^31,
+    whatever the number of primes.
+
+    `extract_scores` rounds the float64 quotient instead; the two could
+    part only where t*x/Q lies within that float's rounding of a
+    half-integer, which a decryption inside the noise budget never nears
+    (its quotient sits within the noise's share of an integer)."""
+    qs, t = params.primes, params.t
+    assert max(qs) < 1 << 31 and t < 1 << 31
+    r = r.to(torch.int64)
+    v = [r[..., 0]]
+    for i in range(1, len(qs)):
+        acc = v[-1]                     # v_0 + q_0 v_1 + ... mod q_i, Horner
+        for j in range(i - 2, -1, -1):
+            acc = (acc * qs[j] + v[j]) % qs[i]
+        inv = pow(math.prod(qs[:i]) % qs[i], -1, qs[i])
+        v.append((r[..., i] - acc) % qs[i] * inv % qs[i])
+    carry = torch.zeros_like(v[0])
+    digits = []
+    for vi, qi in zip(v, qs):
+        s = vi * t + carry
+        digits.append(s % qi)
+        carry = torch.div(s, qi, rounding_mode="floor")
+    half, half_digits = params.big_q // 2, []
+    for qi in qs:
+        half, hd = divmod(half, qi)
+        half_digits.append(hd)
+    above = equal = None
+    for dg, hd in zip(reversed(digits), reversed(half_digits)):
+        gt, eq = dg > hd, dg == hd
+        above = gt if above is None else above | (equal & gt)
+        equal = eq if equal is None else equal & eq
+    val = (carry + above + t // 2) % t - t // 2
+    return val.to(torch.float64) / float(params.scale_q * params.scale_c)
+
+
 def decrypt_scores(sk: RlweSecretKey, res: ScoreCiphertexts) -> np.ndarray:
-    """Decrypt packed inner products -> float scores (len num_cands)."""
-    d_rns = decrypt_rns(sk.params, sk.s_ntt, res.c0, res.c1)
-    return extract_scores(sk.params, d_rns, res.n_dim, res.num_cands)
+    """Decrypt packed inner products -> float scores (len num_cands):
+    `decrypt_scores_batch` on a batch of one."""
+    return decrypt_scores_batch([sk], ScoreCiphertextBatch(
+        c0=res.c0[None], c1=res.c1[None], n_dim=res.n_dim,
+        num_cands=res.num_cands))[0]
 
 
 def decrypt_scores_batch(sks: Sequence[RlweSecretKey], cts, *,
                          tracer=obs.NULL_TRACER) -> list:
-    """Decrypt B score ciphertexts under B (distinct) tenant keys with one
-    key-product launch over every lane and prime; CRT extraction stays per
-    lane (host bignums).  ``cts`` is a list of ScoreCiphertexts or a
-    ScoreCiphertextBatch.  ``tracer`` gets `decrypt_rns`'s spans and
-    ``decrypt_crt`` around the extraction of every lane."""
+    """Decrypt B score ciphertexts under B (distinct) tenant keys, on the
+    keys' device down to the scores: one key-product launch over every
+    lane and prime, the modular subtraction, a gather of each candidate's
+    extraction coefficient (per prime) and an exact int64 CRT lift
+    (`_lift_scores`); only the (B, k') float64 scores cross to the host.
+    Equal to `extract_scores` on `decrypt_rns`'s d, bit for bit.  ``cts``
+    is a list of ScoreCiphertexts (lanes may differ in ``n_dim`` and
+    ``num_cands``) or a ScoreCiphertextBatch; returns one (num_cands,)
+    array a lane.
+
+    ``tracer`` gets three spans: ``decrypt_crt``, the host's launch of the
+    gather and lift; then, after a device mark (`Tracer.mark_device`,
+    stage ``decrypt``) recorded behind the lift, ``decrypt_wait``, the
+    host blocked on that mark (every earlier device operation in stream
+    order, which the copy would wait for anyway); and ``decrypt_copy``,
+    the scores' copy to the host (``bytes`` = lanes x widest k' x 8).
+    The stream is then drained, where `Tracer.anchor_device` anchors the
+    dispatch's device marks."""
     params = sks[0].params
     if isinstance(cts, ScoreCiphertextBatch):
         c0, c1 = cts.c0, cts.c1
@@ -327,11 +387,30 @@ def decrypt_scores_batch(sks: Sequence[RlweSecretKey], cts, *,
         c1 = torch.stack([c.c1 for c in cts])
         meta = [(c.n_dim, c.num_cands) for c in cts]
     s_ntt = torch.stack([sk.s_ntt for sk in sks])[:, None]  # (B, 1, P, N)
-    d_rns = decrypt_rns(params, s_ntt, c0, c1, tracer=tracer)
-    with tracer.span("decrypt_crt", lanes=len(meta),
+    d = _decrypt_d(params, s_ntt, c0, c1)                   # (B, num_ct, P, N)
+    lanes, dev = len(meta), d.device
+    with tracer.span("decrypt_crt", lanes=lanes,
                      num_cands=sum(nc for _, nc in meta)):
-        return [extract_scores(params, d_rns[b], nd, nc)
-                for b, (nd, nc) in enumerate(meta)]
+        width = max(nc for _, nc in meta)
+        index = {nd: _extraction_index(params, nd, width, dev)
+                 for nd in {nd for nd, _ in meta}}
+        # a lane's slots past its own k' are sliced off below; clamped,
+        # they stay inside d where lanes of another n_dim pack more a
+        # ciphertext
+        ct = torch.stack([index[nd][0] for nd, _ in meta]).clamp_(
+            max=d.shape[1] - 1)                                # (B, width)
+        coeff = torch.stack([index[nd][1] for nd, _ in meta])
+        lane = torch.arange(lanes, device=dev)[:, None]
+        scores = _lift_scores(params, d[lane, ct, :, coeff])   # (B, width)
+    ready = tracer.mark_device("decrypt", dev)
+    with tracer.span("decrypt_wait", lanes=lanes):
+        if ready is not None:
+            ready.synchronize()
+    with tracer.span("decrypt_copy", lanes=lanes,
+                     bytes=scores.numel() * scores.element_size()):
+        out = scores.cpu().numpy()
+    tracer.anchor_device()
+    return [out[b, :nc] for b, (_, nc) in enumerate(meta)]
 
 
 # ---------------------------------------------------------------------------

@@ -1090,9 +1090,10 @@ class ServeEngine:
 
         Traced, the stages hand a binding of the tracer (``btr``) down to
         their sub-spans; on CUDA it also marks the device end of each
-        batched step (decryption's inside `rlwe.decrypt_rns`, which
-        anchors the marks after d's copy), and a dispatch that kept every
-        lane records them as ``<stage>_device`` spans at its end."""
+        batched step (decryption's inside `rlwe.decrypt_scores_batch`,
+        which anchors the marks after the scores' copy), and a dispatch
+        that kept every lane records them as ``<stage>_device`` spans at
+        its end."""
         sessions = [self.sessions.get(r.tenant) for r in batch]
         users = [s.user for s in sessions]
         backend = users[0].backend

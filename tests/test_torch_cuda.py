@@ -126,6 +126,41 @@ def test_key_mul_kernel_bit_identical(cuda, n, bsz, num_ct, keys):
         assert torch.equal(got[..., i, :], chain)
 
 
+def test_decrypt_scores_on_card_equal_host_extraction(cuda):
+    """At the two-tower round's shape (8 lanes x 1,699 ciphertexts, width
+    256, k' = 6,795, per-tenant keys) on uniform residues: decryption on
+    the card down to the scores (gather and int64 CRT lift) equals
+    `extract_scores` on the host copy of d, lane by lane, and copies only
+    the scores."""
+    from repro_torch import obs
+
+    params = rlwe.RlweParams()
+    sks = [rlwe.keygen(params, np.random.default_rng(i), device=cuda)
+           for i in range(8)]
+    n_dim, kprime = 256, 6795
+    num_ct = -(-kprime // params.cands_per_ct(n_dim))
+    assert num_ct == 1699
+    g = torch.Generator(device=cuda).manual_seed(27)
+
+    def uniform():
+        return torch.stack([
+            torch.randint(0, q, (8, num_ct, params.n_poly), generator=g,
+                          device=cuda, dtype=torch.int32)
+            for q in params.primes], dim=2)
+
+    c0, c1 = uniform(), uniform()
+    tracer = obs.Tracer()
+    got = rlwe.decrypt_scores_batch(sks, rlwe.ScoreCiphertextBatch(
+        c0=c0, c1=c1, n_dim=n_dim, num_cands=kprime), tracer=tracer)
+    for b, sk in enumerate(sks):
+        want = rlwe.extract_scores(
+            params, rlwe.decrypt_rns(params, sk.s_ntt, c0[b], c1[b]),
+            n_dim, kprime)
+        np.testing.assert_array_equal(got[b], want)
+    (copy,) = [s for s in tracer.spans() if s.name == "decrypt_copy"]
+    assert copy.attrs == {"lanes": 8, "bytes": 8 * kprime * 8}
+
+
 # (a's shape, b): b one row expanded, full, expanded over the middle dim
 # (three collapsed dims), a transposed view (two unmergeable dims), and
 # rows of 7 and 2 residues (4- and 8-byte vectors)

@@ -101,10 +101,8 @@ def test_subspans_nest_inside_their_parents(corpus):
         by = {p.name: p.attrs for p in parts}
         assert by["decrypt_wait"]["lanes"] == dec.attrs["lanes"]
         assert by["decrypt_crt"]["num_cands"] == dec.attrs["lanes"] * kprime
-        # d: (lanes, ciphertexts, primes, N) int32
-        cts = -(-kprime // TP.cands_per_ct(DIM))
-        assert by["decrypt_copy"]["bytes"] == (
-            dec.attrs["lanes"] * cts * TP.num_primes * TP.n_poly * 4)
+        # the scores: (lanes, k') float64
+        assert by["decrypt_copy"]["bytes"] == dec.attrs["lanes"] * kprime * 8
     cert = [s for s in subs if s.name == "topk_certificate"]
     assert [c.attrs["kprime"] for c in cert] == [kprime] * len(cert)
     assert all(c.attrs["ok"] is True for c in cert)
