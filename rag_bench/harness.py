@@ -1,33 +1,51 @@
 """One run of one cell: set-up, the measured window, the check against
 the plain reference, and the result line.
 
-The window drives the port's serving entry, `repro_torch.serve.ServeEngine`,
-over a `FlatIndex` with the dense NTT-domain candidate cache: each request
-goes in through ``submit(tenant, embedding, key=<from the seed>)`` and
-comes back from ``step`` or ``drain``, on this one thread.  Every time is
-read from ``time.perf_counter``, which the engine is given as its clock.
-A closed loop's clients each send their next request when their last
-reply is back; an open loop sends each request when it is due and times it
-from then, however late the loop got to it."""
+The harness knows no program.  A cell's configuration module,
+``configs/<name>.py``, brings one as ``make_program(cfg, cell, seed,
+device, tracer)``; a module that gives only ``make_inputs`` gets the
+private retrieval round of ``rag_round.py``.  ``make_program`` builds the
+program and warms it up on the cell's ``warmup`` (so its set-up falls
+inside ``setup_s``) and returns an object with:
+
+* ``pool``: the payloads the schedule draws from, and ``tenants``: the
+  tenants ``submit`` takes (request ``i`` sends ``pool[query[i]]`` for
+  ``tenants[tenant[i]]``);
+* ``shapes``: a dict, ``Run.shapes`` for the metric readers;
+* ``submit(tenant, payload, key) -> request id`` (``key`` a 62-bit draw
+  from the seed);
+* ``step()`` and ``drain()``: the results that are done, each with ``ok``
+  and ``request_id``, and ``transcript.total_bytes`` (the bytes a request
+  put on the wire, read by ``wire_kb_per_request``); ``pending``;
+* optionally ``on_results(results)``, called on each step's results in
+  the order they came;
+* ``close()``: frees the program's device state before the reference runs;
+* ``check(run, served, sched, seed) -> {name: number}``: after ``close``,
+  the numbers compared with the plain reference, one for each key of the
+  cell's ``limits`` (the harness raises on any other set of names);
+  ``correct`` is every number at or below its limit.
+
+The window drives the program on this one thread, every time read from
+``time.perf_counter``; it reads ``submit``, ``step`` and ``pool`` once,
+when it starts.  A closed loop's clients each send their next
+request when their last reply is back; an open loop sends each request
+when it is due and times it from then, however late the loop got to it."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import math
 import sys
-import threading
 import time
-from collections import deque
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from . import guard, manifest, schedule
-from .reference import check as refcheck
-from .reference import plan as refplan
+from . import guard, manifest, rag_round, schedule
 
 CLOCK = time.perf_counter
 GRACE_S = 60.0          # an open loop waits this long past the window
@@ -64,68 +82,42 @@ class Run:
                    if d <= t and self.ok(i))
 
 
-class FetchLog:
-    """The candidate ids of every reply, read where the user fetches its
-    documents: ``RemoteRagCloud.handle_fetch(candidate_ids, FetchDirect)``
-    on the engine's cloud, wrapped.  Records made on the stepping thread
-    pair in order with the completed lanes a ``step`` returns; a retry
-    lane's records pair by content."""
-
-    def __init__(self, cloud):
-        self._main = threading.get_ident()
-        self._ordered: deque = deque()
-        self._other: list = []
-        inner = cloud.handle_fetch
-
-        def handle_fetch(cand_ids, msg):
-            rec = (np.array(cand_ids, copy=True),
-                   [int(p) for p in msg.positions])
-            if threading.get_ident() == self._main:
-                self._ordered.append(rec)
-            else:
-                self._other.append(rec)
-            return inner(cand_ids, msg)
-
-        cloud.handle_fetch = handle_fetch
-
-    def pair(self, results) -> Dict[int, np.ndarray]:
-        """{request id: candidate ids} for the ok results of one step."""
-        out = {}
-        for r in results:
-            if not r.ok:
-                continue
-            ids = np.asarray(r.ids).reshape(-1)
-            if not r.quarantined and self._ordered:
-                cand, pos = self._ordered.popleft()
-            else:
-                match = [j for j, (c, p) in enumerate(self._other)
-                         if np.array_equal(c[p], ids)]
-                if not match:
-                    continue
-                cand, pos = self._other.pop(match[0])
-            if np.array_equal(cand[pos], ids):
-                out[r.request_id] = cand
-        return out
-
-
-def submitter(engine, run: Run, sched, queries, rids: Dict[int, int]):
-    """``submit(i, due)``: request ``i`` of ``sched`` into ``engine``,
+def submitter(program, run: Run, sched, rids: Dict[int, int]):
+    """``submit(i, due)``: request ``i`` of ``sched`` into ``program``,
     its due and send times into ``run``, its request id into ``rids``."""
+    send, pool, tenants = program.submit, program.pool, program.tenants
+
     def submit(i: int, due: float) -> None:
         run.due[i] = due
         run.sent[i] = CLOCK()
-        rid = engine.submit(f"tenant-{int(sched.tenant[i])}",
-                            queries[int(sched.query[i])],
-                            key=int(sched.key[i]))
+        rid = send(tenants[int(sched.tenant[i])], pool[int(sched.query[i])],
+                   int(sched.key[i]))
         rids[rid] = i
     return submit
 
 
-def drive(engine, run: Run, sched, submit, finish,
+def finisher(program, run: Run, rids: Dict[int, int]):
+    """``finish(results, now)``: one step's results to the program's
+    ``on_results``, where it has one, then each into ``run``."""
+    on_results = getattr(program, "on_results", None)
+
+    def finish(results, now: float) -> None:
+        if on_results is not None:
+            on_results(results)
+        for r in results:
+            i = rids.get(r.request_id)
+            if i is not None and i not in run.result:
+                run.result[i] = r
+                run.done[i] = now
+    return finish
+
+
+def drive(program, run: Run, sched, submit, finish,
           sleep=time.sleep) -> None:
     """The measured window, closed or open loop (see the module's
     docstring); ``finish(results, now)`` takes each step's results.
     Leaves what is still queued for the drain."""
+    step = program.step
     t0 = CLOCK()
     run.t0, run.t_end = t0, t0 + run.seconds
     if sched.kind == "closed":
@@ -134,7 +126,7 @@ def drive(engine, run: Run, sched, submit, finish,
             submit(nxt, t0)
             nxt += 1
         while CLOCK() < run.t_end:
-            res = engine.step()
+            res = step()
             now = CLOCK()
             if not res:
                 sleep(0.0002)
@@ -152,11 +144,11 @@ def drive(engine, run: Run, sched, submit, finish,
             while i < n and t0 + arrivals[i] <= now:
                 submit(i, t0 + arrivals[i])
                 i += 1
-            res = engine.step()
+            res = step()
             done = CLOCK()
             if res:
                 finish(res, done)
-            if (i >= n and engine.pending == 0) or done > run.t_end + GRACE_S:
+            if (i >= n and program.pending == 0) or done > run.t_end + GRACE_S:
                 break
             if not res:
                 wait = t0 + arrivals[i] - done if i < n else 0.0
@@ -166,30 +158,21 @@ def drive(engine, run: Run, sched, submit, finish,
 
 @dataclasses.dataclass
 class Setup:
-    """A cell's program, built and warmed up: the engine over its index,
-    and the inputs it was made from."""
+    """A cell's program, built and warmed up, with what it was made from."""
     cell: dict
     cfg: dict
     traffic: dict
-    inputs: dict
-    engine: object
-    index: object
+    program: object
     tracer: object
     device: object
-    kprime: int
 
 
 def build(cell_name: str, *, seed: int, trace: bool, device,
           config_overrides: Optional[dict] = None) -> Setup:
-    """Inputs from the seed, the index, the engine with its sessions, and
-    the warm-up batches (the cell's own shapes, off the window's
-    streams)."""
+    """The cell's files, the stage tracer of a traced run, and the
+    program from ``make_program`` (the RLWE round where the configuration
+    module has none)."""
     import torch
-
-    from repro_torch import obs
-    from repro_torch.crypto.rlwe import RlweParams
-    from repro_torch.retrieval.index import FlatIndex
-    from repro_torch.serve import EngineConfig, ServeEngine, SessionManager
 
     from . import devtrace
 
@@ -198,41 +181,18 @@ def build(cell_name: str, *, seed: int, trace: bool, device,
            **(config_overrides or {})}
     traffic = manifest.load_json("traffic", cell["traffic"])
     builder = manifest.load_module("configs", cell["config"])
+    make_program = getattr(builder, "make_program", None) or functools.partial(
+        rag_round.RagRound, make_inputs=builder.make_inputs)
     dev = torch.device(device)
-    inputs = builder.make_inputs(cfg, seed, dev)
-    queries = inputs["queries"]
-    index = FlatIndex.build(inputs["corpus"], documents=inputs["documents"],
-                            normalize=False, device=dev)
-    params = RlweParams(**cfg["rlwe"])
-    eng_cfg = cfg["engine"]
-    tracer = devtrace.stage_tracer(obs, CLOCK) if trace else None
-    engine = ServeEngine(
-        index, config=EngineConfig(max_batch=eng_cfg["max_batch"],
-                                   max_wait_s=eng_cfg["max_wait_s"],
-                                   refill=eng_cfg["refill"]),
-        sessions=SessionManager(rlwe_params=params, deterministic_seeds=True,
-                                device=dev),
-        clock=CLOCK, tracer=tracer)
-    tenants = eng_cfg["tenants"]
-    knob = cfg["plan"]
-    plan_kw = ({"plan_kwargs": {"kprime": knob["kprime"]}}
-               if "kprime" in knob else {"radius": knob["radius"]})
-    for t in range(tenants):
-        engine.open_session(f"tenant-{t}", n=index.dim, N=index.num_rows,
-                            k=cfg["k"], seed=schedule.sub_seed(seed, 100 + t),
-                            **plan_kw)
-    wkeys = np.random.default_rng(schedule.sub_seed(seed, 4))
-    for size in cell["warmup"]:
-        for j in range(size):
-            engine.submit(f"tenant-{j % tenants}",
-                          queries[int(wkeys.integers(len(queries)))],
-                          key=int(wkeys.integers(1 << 62)))
-        engine.drain()
+    tracer = None
+    if trace:
+        from repro_torch import obs
+        tracer = devtrace.stage_tracer(obs, CLOCK)
+    program = make_program(cfg, cell, seed, dev, tracer)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    return Setup(cell=cell, cfg=cfg, traffic=traffic, inputs=inputs,
-                 engine=engine, index=index, tracer=tracer, device=dev,
-                 kprime=engine.sessions.get("tenant-0").plan.kprime)
+    return Setup(cell=cell, cfg=cfg, traffic=traffic, program=program,
+                 tracer=tracer, device=dev)
 
 
 def run_cell(cell_name: str, *, seed: int, seconds: float, trace: bool,
@@ -240,7 +200,8 @@ def run_cell(cell_name: str, *, seed: int, seconds: float, trace: bool,
              bench: Optional[dict] = None, config_overrides: dict = None,
              fault: Optional[Callable] = None, log=sys.stderr) -> dict:
     """One run; returns the result object (``checks`` last).  ``fault``
-    (tests) is applied to the engine before the window."""
+    (tests) is applied before the window to the program's ``engine``
+    where it has one, else to the program."""
     import torch
 
     from . import devtrace
@@ -251,33 +212,15 @@ def run_cell(cell_name: str, *, seed: int, seconds: float, trace: bool,
         torch.cuda.reset_peak_memory_stats()
     st = build(cell_name, seed=seed, trace=trace, device=device,
                config_overrides=config_overrides)
-    cell, cfg, traffic, inputs = st.cell, st.cfg, st.traffic, st.inputs
-    engine, index, tracer, dev = st.engine, st.index, st.tracer, st.device
-    queries = inputs["queries"]
-    tenants = cfg["engine"]["tenants"]
-    n_rows, dim, kprime = index.num_rows, index.dim, st.kprime
-    fetches = FetchLog(engine.cloud)
+    cell, program, tracer, dev = st.cell, st.program, st.tracer, st.device
     if fault is not None:
-        fault(engine)
-    sched = schedule.make(traffic, seed=seed, seconds=seconds,
-                          pool=len(queries), tenants=tenants)
-    run = Run(seconds=seconds, setup_s=0.0,
-              shapes=dict(rows=n_rows, dim=dim, kprime=kprime,
-                          rlwe=cfg["rlwe"]))
+        fault(getattr(program, "engine", program))
+    sched = schedule.make(st.traffic, seed=seed, seconds=seconds,
+                          pool=len(program.pool),
+                          tenants=len(program.tenants))
+    run = Run(seconds=seconds, setup_s=0.0, shapes=program.shapes)
     rids: Dict[int, int] = {}
-    cands: Dict[int, np.ndarray] = {}
-
-    def finish(res, now: float) -> None:
-        i = rids.get(res.request_id)
-        if i is not None and i not in run.result:
-            run.result[i] = res
-            run.done[i] = now
-
-    def finish_step(results, now):
-        # one step's results pair in order with its fetch records
-        cands.update(fetches.pair(results))
-        for r in results:
-            finish(r, now)
+    finish = finisher(program, run, rids)
 
     gc.collect()
     gc.freeze()
@@ -286,12 +229,11 @@ def run_cell(cell_name: str, *, seed: int, seconds: float, trace: bool,
     if trace:
         tracer.open = True
         prof.start()
-    drive(engine, run, sched, submitter(engine, run, sched, queries, rids),
-          finish_step)
+    drive(program, run, sched, submitter(program, run, sched, rids), finish)
     if trace:
         prof.stop()
         tracer.open = False
-    finish_step(engine.drain(), CLOCK())
+    finish(program.drain(), CLOCK())
     device_info = dict(platform="gpu" if dev.type == "cuda" else dev.type,
                        kind=(torch.cuda.get_device_name(dev)
                              if dev.type == "cuda" else "cpu"),
@@ -312,14 +254,19 @@ def run_cell(cell_name: str, *, seed: int, seconds: float, trace: bool,
     _report_loop(run, sched, log)
 
     # the program's state goes before the reference runs
-    engine.close()
-    del engine, index, fetches, st
+    program.close()
+    del st
     gc.unfreeze()
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    checks = _check(cell, cfg, run, served, cands, inputs, queries, sched,
-                    seed, dev)
+    nums = program.check(run, served, sched, seed)
+    limits = cell["limits"]
+    if set(nums) != set(limits):
+        raise ValueError(f"{cell_name}: the program's check gives "
+                         f"{sorted(nums)}, the cell's limits {sorted(limits)}")
+    checks = {name: {"value": float(v), "limit": float(limits[name])}
+              for name, v in nums.items()}
 
     metrics = {}
     entries = (manifest.per_layer(bench, cell_name) if trace
@@ -348,49 +295,6 @@ def _report_loop(run: Run, sched, log) -> None:
           f"max {np.max(late) * 1e3:.3f} ms; closed "
           f"{(run.t_close - run.t_end) * 1e3:.1f} ms after the window",
           file=log)
-
-
-def _check(cell, cfg, run: Run, served, cands, inputs, queries, sched,
-           seed: int, dev) -> dict:
-    """The numbers compared, each beside its limit (see
-    ``reference/check.py``)."""
-    k, dim, n_rows = cfg["k"], run.shapes["dim"], run.shapes["rows"]
-    plan = refplan.from_knob(cfg["plan"], n=dim, N=n_rows, k=k)
-    if plan.use_ot:
-        raise ValueError("the reference covers the direct path only")
-    docs_fmt = cfg["documents"]
-    rows = []
-    for i, r in served.items():
-        t = r.transcript
-        rows.append(refcheck.Served(
-            query=queries[int(sched.query[i])], key=int(sched.key[i]),
-            cand_ids=cands.get(r.request_id), ids=np.asarray(r.ids),
-            docs=list(r.docs),
-            transcript=None if t is None else dict(
-                request_bytes=t.request_bytes, reply_bytes=t.reply_bytes,
-                fetch_bytes=t.fetch_bytes, docs_bytes=t.docs_bytes,
-                ot_wire_bytes=t.ot_wire_bytes)))
-    limits = cell["limits"]
-    nums = dict(missing=len(run.due) - len(served),
-                doc_errors=refcheck.document_errors(rows, docs_fmt),
-                wire_errors=refcheck.wire_errors(
-                    rows, dim=dim, kprime=plan.kprime, k=k,
-                    doc_format=docs_fmt, rlwe=cfg["rlwe"]))
-    rng = np.random.default_rng(schedule.sub_seed(seed, 3))
-    take = min(cell["check_sample"], len(rows))
-    sample = [rows[j] for j in sorted(rng.choice(len(rows), take,
-                                                 replace=False))]
-    if sample:
-        corpus = inputs["reference_corpus"]()
-        pert = refcheck.perturbed(sample, plan.eps, dev)
-        nums.update(refcheck.gaps(corpus, sample, pert, k=k,
-                                  kprime=plan.kprime))
-        del corpus
-    else:
-        nums.update(cand_gap=math.inf, topk_gap=math.inf)
-    return {name: {"value": float(nums[name]), "limit": float(limits[name])}
-            for name in ("missing", "cand_gap", "topk_gap", "doc_errors",
-                         "wire_errors")}
 
 
 def main(argv=None, t_start: Optional[float] = None) -> int:

@@ -1,8 +1,9 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
 A cell is ``cells/<name>.json``; its configuration ``configs/<name>.json``
-(the sizes as run) with ``configs/<name>.py`` beside it (the code that
-makes the configuration's inputs from the seed); its traffic mix
+(the sizes as run) with ``configs/<name>.py`` beside it (the program,
+``make_program``, or for the retrieval round only the code that makes
+its inputs from the seed, ``make_inputs``); its traffic mix
 ``traffic/<name>.json``; each metric ``metrics/<name>.py`` (a reader with
 ``read(run) -> float | None``).  Adding a cell, configuration, mix or
 metric adds files and entries; no file here changes."""

@@ -1,6 +1,7 @@
-"""kB (10^3 bytes) of d copied to the host per lane: the mean, over the
-program's ``decrypt_copy`` spans left in the tracer's ring, of their
-``bytes`` over their ``lanes``."""
+"""kB (10^3 bytes) of scores copied to the host per lane: the mean, over
+the program's ``decrypt_copy`` spans left in the tracer's ring, of their
+``bytes`` over their ``lanes``: the batch's widest k' times 8, its
+float64 scores."""
 
 
 def read(run):

@@ -1,5 +1,5 @@
-"""Host milliseconds in the program's ``decrypt_copy`` spans (d's copy to
-the host and its widening to int64) per completed request, over the
+"""Host milliseconds in the program's ``decrypt_copy`` spans (the copy of
+the (B, k') float64 scores to the host) per completed request, over the
 traced window."""
 
 from rag_bench.metrics_common import stage_ms_per_request

@@ -1,6 +1,6 @@
-"""Host milliseconds in the program's ``decrypt_crt`` spans (the CRT
-extraction of every lane's scores) per completed request, over the traced
-window."""
+"""Host milliseconds in the program's ``decrypt_crt`` spans (the host's
+launch of the device gather of the extraction coefficients and their
+int64 CRT lift) per completed request, over the traced window."""
 
 from rag_bench.metrics_common import stage_ms_per_request
 

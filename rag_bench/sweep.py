@@ -37,21 +37,15 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     st = harness.build(args.workload, seed=args.seed, trace=False,
                        device="cuda")
-    queries = st.inputs["queries"]
+    program = st.program
     max_batch = st.cfg["engine"]["max_batch"]
     for j, rate in enumerate(float(r) for r in args.rates.split(",")):
         sched = schedule.make({"kind": "poisson", "rate_rps": rate},
                               seed=args.seed + j, seconds=args.seconds,
-                              pool=len(queries),
-                              tenants=st.cfg["engine"]["tenants"])
+                              pool=len(program.pool),
+                              tenants=len(program.tenants))
         run = harness.Run(seconds=args.seconds, setup_s=0.0)
         rids = {}
-
-        def finish(results, now):
-            for r in results:
-                i = rids[r.request_id]
-                run.result[i], run.done[i] = r, now
-
         # the window only: arrivals past it are not offered
         cut = int((sched.arrivals < args.seconds).sum())
         sched = schedule.Schedule(kind="poisson", clients=0,
@@ -59,9 +53,9 @@ def main(argv=None) -> int:
                                   query=sched.query[:cut],
                                   tenant=sched.tenant[:cut],
                                   key=sched.key[:cut])
-        harness.drive(st.engine, run, sched,
-                      harness.submitter(st.engine, run, sched, queries,
-                                         rids), finish)
+        harness.drive(program, run, sched,
+                      harness.submitter(program, run, sched, rids),
+                      harness.finisher(program, run, rids))
         backlog = sum(1 for i in run.due if run.done.get(i, 1e18) > run.t_end)
         halves = []
         for lo, hi in ((0, 0.5), (0.5, 1.0)):
@@ -76,7 +70,7 @@ def main(argv=None) -> int:
                            and halves[1][1] <= 1.25 * halves[0][1]))),
               flush=True)
         time.sleep(1.0)
-    st.engine.close()
+    program.close()
     return 0
 
 
