@@ -14,6 +14,11 @@ Counterpart of ``repro/models/moe.py`` (GShard-style routing):
 ``impl="shard_a2a"`` with a mesh runs `moe_fwd_sharded` (the reference's
 ``shard_map`` formulation, SPMD: one process per rank); with no mesh
 ``moe_fwd`` runs the einsum formulation, as the reference's does.
+
+A `DroplessMoeSpec` runs DeepSeek-V2's layer instead (`moe_fwd_dropless`, no
+counterpart in the reference): its softmax-then-top-k gate, every
+(token, expert) pair computed in grouped products, and the shared
+experts (``shared``, a SwiGLU) added to every token.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models.layers import make_param
+from repro_torch.models.layers import Mlp, make_param, mlp_fwd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +50,8 @@ class MoeSpec:
     # "einsum" | "shard_a2a" (over ``mesh``: see moe_fwd_sharded)
     impl: str = "einsum"
     mesh: Optional[object] = None   # repro_torch.launch.mesh.make_mesh
+    # not a field: True on `DroplessMoeSpec`, whose layer is DeepSeek's
+    dropless = False
 
     @property
     def padded_experts(self) -> int:
@@ -56,11 +63,23 @@ class MoeSpec:
         return max(4, -(-cap // 4) * 4)
 
 
+@dataclasses.dataclass(frozen=True)
+class DroplessMoeSpec(MoeSpec):
+    """DeepSeek's layer (`moe_fwd_dropless`): a softmax over every expert,
+    the top k taken as they are, times ``routed_scale``; the shared
+    experts' SwiGLU of ``shared_d_ff`` (none if None) added to every
+    token.  The capacity and sharding fields are unused."""
+    routed_scale: float = 1.0
+    shared_d_ff: Optional[int] = None
+    dropless = True
+
+
 class Moe(nn.Module):
     """The reference's ``moe_params`` tree: ``router`` (d_model, E_pad),
     ``w_gate``/``w_up`` (E_pad, d_model, d_ff), ``w_down`` (E_pad, d_ff,
     d_model); normal x 1/sqrt(d_model), ``w_down`` x 1/sqrt(d_ff), drawn
-    from ``generator`` in that order."""
+    from ``generator`` in that order; then, with ``shared_d_ff``, the
+    shared experts ``shared`` (an `Mlp`)."""
 
     def __init__(self, spec: MoeSpec, generator: torch.Generator,
                  device: torch.device, dtype=torch.float32):
@@ -73,12 +92,19 @@ class Moe(nn.Module):
         self.w_up = make_param((e, d, f), scale, generator, device, dtype)
         self.w_down = make_param((e, f, d), 1.0 / math.sqrt(f), generator,
                                  device, dtype)
+        if spec.dropless and spec.shared_d_ff:
+            self.shared = Mlp(d, spec.shared_d_ff, generator, device, dtype)
 
-    def forward(self, x: torch.Tensor) -> tuple:
-        return moe_fwd(self, x, self.spec)
+    def forward(self, x: torch.Tensor, probe=None) -> tuple:
+        return moe_fwd(self, x, self.spec, probe=probe)
 
 
-def moe_fwd(p: Moe, x: torch.Tensor, spec: MoeSpec) -> tuple:
+def moe_fwd(p: Moe, x: torch.Tensor, spec: MoeSpec, probe=None) -> tuple:
+    """``probe`` (serving traces, dropless path only) is handed the
+    number of distinct experts the tokens were routed to, on the
+    device."""
+    if spec.dropless:
+        return moe_fwd_dropless(p, x, spec, probe=probe)
     if spec.impl == "shard_a2a" and spec.mesh is not None:
         return moe_fwd_sharded(p, x, spec)
     return moe_fwd_einsum(p, x, spec)
@@ -223,5 +249,77 @@ def _dispatch_compute(p, x: torch.Tensor, gate_w: torch.Tensor,
     return unsorted.reshape(b, s, k, d).sum(dim=2)
 
 
-__all__ = ["MoeSpec", "Moe", "moe_fwd", "moe_fwd_einsum", "moe_fwd_sharded",
-           "route"]
+def softmax_topk_gates(p: Moe, x: torch.Tensor,
+                       spec: DroplessMoeSpec) -> tuple:
+    """DeepSeek's gate (``MoEGate``, ``topk_method`` greedy, ``scoring_func``
+    softmax, ``norm_topk_prob`` false): float32 logits from float32 x and
+    router, a softmax over every expert, the top k scores as they are
+    (not renormalised) times ``routed_scale``.  (weights (T, k) float32,
+    expert ids (T, k))."""
+    logits = torch.matmul(x.float(), p.router.float())
+    scores = torch.softmax(logits, dim=-1)
+    weights, ids = torch.topk(scores, spec.top_k, dim=-1)
+    return weights * spec.routed_scale, ids
+
+
+_GROUPED_MM = getattr(torch, "_grouped_mm", None)
+
+
+def grouped_mm(a: torch.Tensor, w: torch.Tensor,
+               counts: torch.Tensor) -> torch.Tensor:
+    """Rows of ``a`` (M, d_in) grouped by expert (the first counts[0] for
+    expert 0, ...) through their expert's ``w`` (E, d_in, d_out):
+    ``torch._grouped_mm`` over device offsets where this torch has it, in
+    bfloat16 on CUDA (an expert with no rows is skipped, its weights never
+    read; nothing waits for the host, so a CUDA graph can hold it) or on
+    the CPU; else one product per expert with rows, their counts read on
+    the host."""
+    if _GROUPED_MM is not None and (a.dtype == torch.bfloat16
+                                    or not a.is_cuda):
+        offs = torch.cumsum(counts, 0, dtype=torch.int32)
+        return _GROUPED_MM(a, w, offs=offs)
+    out = a.new_empty((a.shape[0], w.shape[-1]))
+    lo = 0
+    for e, n in enumerate(counts.tolist()):
+        if n:
+            out[lo:lo + n] = torch.matmul(a[lo:lo + n], w[e])
+            lo += n
+    return out
+
+
+def moe_fwd_dropless(p: Moe, x: torch.Tensor, spec: DroplessMoeSpec,
+                     probe=None) -> tuple:
+    """DeepSeek-V2's MoE at inference (``DeepseekV2MoE.moe_infer``): every
+    (token, expert) pair computed, none dropped.  The pairs are sorted by
+    expert and each expert's rows go through its SwiGLU as one group
+    (`grouped_mm`), so only the experts some token chose are computed;
+    the outputs are weighted and summed over k in float32 and cast back,
+    then the shared experts' SwiGLU of every token is added.  x: (B, S,
+    d) -> ((B, S, d), a zero aux loss: no balancing term at inference)."""
+    b, s, d = x.shape
+    k = spec.top_k
+    xt = x.reshape(b * s, d)
+    weights, ids = softmax_topk_gates(p, xt, spec)
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    # a scatter, not ``bincount``, which reads the ids' maximum on the host
+    counts = torch.zeros(spec.padded_experts, dtype=torch.int64,
+                         device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    if probe is not None:
+        probe.experts((counts > 0).sum())
+    rows = xt[order // k]
+    h = F.silu(grouped_mm(rows, p.w_gate, counts)) * grouped_mm(
+        rows, p.w_up, counts)
+    y = grouped_mm(h, p.w_down, counts)
+    unsorted = torch.empty_like(y)
+    unsorted[order] = y
+    out = (unsorted.reshape(b * s, k, d).float()
+           * weights[..., None]).sum(dim=1).to(x.dtype)
+    if spec.shared_d_ff:
+        out = out + mlp_fwd(p.shared, xt)
+    return out.reshape(b, s, d), torch.zeros((), device=x.device)
+
+
+__all__ = ["MoeSpec", "DroplessMoeSpec", "Moe", "moe_fwd", "moe_fwd_einsum", "moe_fwd_sharded",
+           "moe_fwd_dropless", "softmax_topk_gates", "grouped_mm", "route"]

@@ -15,10 +15,20 @@ A config with ``moe_experts`` set holds a `repro_torch.models.moe.Moe`
 (``layers.{i}.moe``) in place of each layer's SwiGLU ``mlp``, with its
 experts padded to a multiple of ``tp`` as in the reference.
 
+`DeepseekV2Config` (no counterpart in the reference) builds DeepSeek-V2's
+stack: latent attention (`repro_torch.models.layers.MlaAttention`) in
+every layer, ``first_dense_layers`` SwiGLU layers and then MoE layers with
+DeepSeek's gate, dropless dispatch and shared experts; its cache holds
+each layer's normed latent and roped k_pe (``ckv``, ``kpe``) in place of
+per-head keys and values.  `init_by_name` draws such a model's weights
+tensor by tensor from sub-seeds of its parameters' names, so that a plain
+reference can redraw any one of them.
+
 Entry points (methods of `Transformer`):
   forward(tokens)                  logits + MoE aux loss for training
   loss(tokens, targets)            ``loss_fn``: differentiable
-  prefill / decode_step            serving with a KV cache (no autograd)
+  prefill / decode_step            serving with a KV cache (no autograd);
+                                   a decode step reports to a ``probe``
 
 Parameters are built with ``requires_grad`` off, as a serving model holds
 no autograd state; a trainer turns it on (``model.requires_grad_(True)``,
@@ -50,6 +60,7 @@ other layouts (the lowered cells) is still to port.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Optional
 
@@ -131,6 +142,15 @@ class TransformerConfig:
     def is_moe(self) -> bool:
         return self.moe_experts is not None
 
+    def layer_is_moe(self, i: int) -> bool:
+        """Whether layer ``i`` holds a MoE (every layer of a MoE config)."""
+        return self.is_moe
+
+    @property
+    def mla_spec(self) -> Optional[layers.MlaSpec]:
+        """Latent attention's spec, or None: GQA (`AttentionSpec`)."""
+        return None
+
     def param_count(self) -> int:
         """Approximate true (unpadded) parameter count."""
         a = self.d_model * self.d_head * (self.n_heads * 2 + self.n_kv_heads * 2)
@@ -151,36 +171,116 @@ class TransformerConfig:
         return self.n_layers * (a + f) + emb
 
 
+@dataclasses.dataclass(frozen=True)
+class DeepseekV2Config(TransformerConfig):
+    """DeepSeek-V2's decoder (the published ``modeling_deepseek.py``):
+    latent attention with ``kv_lora_rank``, q direct (no q compression),
+    heads of ``qk_nope_dim`` + ``qk_rope_dim`` for q·k and ``v_head_dim``
+    for v, YaRN rope on the rope dimensions; ``first_dense_layers`` SwiGLU
+    layers of ``d_ff``, then MoE layers of ``moe_experts`` experts of
+    ``moe_d_ff`` (top ``moe_top_k`` of a softmax, not renormalised, times
+    ``routed_scaling``), dropless, with a shared SwiGLU of
+    ``moe_shared_d_ff``.  ``n_kv_heads`` and ``d_head`` are unused."""
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_scaling: Optional[layers.YarnScaling] = None
+    first_dense_layers: int = 1
+    moe_shared_d_ff: Optional[int] = None
+    routed_scaling: float = 1.0
+
+    def layer_is_moe(self, i: int) -> bool:
+        return self.is_moe and i >= self.first_dense_layers
+
+    @property
+    def mla_spec(self) -> layers.MlaSpec:
+        return layers.MlaSpec(
+            d_model=self.d_model, n_heads=self.n_heads,
+            kv_lora_rank=self.kv_lora_rank, qk_nope_dim=self.qk_nope_dim,
+            qk_rope_dim=self.qk_rope_dim, v_head_dim=self.v_head_dim,
+            rope_theta=self.rope_theta, rope_scaling=self.rope_scaling)
+
+    @property
+    def moe_spec(self) -> Optional[moe_lib.MoeSpec]:
+        if self.moe_experts is None:
+            return None
+        return moe_lib.DroplessMoeSpec(
+            d_model=self.d_model, d_ff=self.moe_d_ff or self.d_ff,
+            n_experts=self.moe_experts, top_k=self.moe_top_k,
+            routed_scale=self.routed_scaling,
+            shared_d_ff=self.moe_shared_d_ff)
+
+    def _attn_params(self) -> int:
+        h, d = self.n_heads, self.d_model
+        return (d * h * (self.qk_nope_dim + self.qk_rope_dim)
+                + d * (self.kv_lora_rank + self.qk_rope_dim)
+                + self.kv_lora_rank
+                + self.kv_lora_rank * h * (self.qk_nope_dim + self.v_head_dim)
+                + h * self.v_head_dim * d + 2 * d)
+
+    def _moe_params(self, experts: int) -> int:
+        d, f = self.d_model, self.moe_d_ff or self.d_ff
+        return (d * self.moe_experts + 3 * d * f * experts
+                + 3 * d * (self.moe_shared_d_ff or 0))
+
+    def param_count(self, experts: Optional[int] = None) -> int:
+        """Every parameter (norms, the latent's norm and the shared
+        experts included), with ``experts`` routed experts a MoE layer
+        (all by default)."""
+        moe = self.n_layers - self.first_dense_layers
+        return (self.n_layers * self._attn_params()
+                + self.first_dense_layers * 3 * self.d_model * self.d_ff
+                + moe * self._moe_params(experts or self.moe_experts)
+                + 2 * self.vocab * self.d_model + self.d_model)
+
+    def active_param_count(self) -> int:
+        return self.param_count(self.moe_top_k)
+
+
 class Block(nn.Module):
-    """One pre-norm layer: ``attn_norm``, ``attn``, ``mlp_norm`` and
-    ``mlp`` (dense) or ``moe`` (MoE)."""
+    """One pre-norm layer: ``attn_norm``, ``attn`` (GQA, or latent
+    attention where the config has an ``mla_spec``), ``mlp_norm`` and
+    ``mlp`` (dense) or ``moe`` (MoE; whether layer ``index`` holds one is
+    ``cfg.layer_is_moe(index)``)."""
 
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, index: int = 0):
         super().__init__()
         dt = cfg.torch_dtype
         self.attn_norm = layers.make_ones((cfg.d_model,), device, dt)
         self.mlp_norm = layers.make_ones((cfg.d_model,), device, dt)
-        self.attn = layers.Attention(cfg.attn_spec, generator, device, dt)
-        if cfg.is_moe:
+        mla = cfg.mla_spec
+        if mla is None:
+            self.attn = layers.Attention(cfg.attn_spec, generator, device, dt)
+        else:
+            self.attn = layers.MlaAttention(mla, generator, device, dt)
+        self.is_moe = cfg.layer_is_moe(index)
+        if self.is_moe:
             self.moe = moe_lib.Moe(cfg.moe_spec, generator, device, dt)
         else:
             self.mlp = layers.Mlp(cfg.d_model, cfg.d_ff, generator, device,
                                   dt)
 
     def forward(self, x, cfg: TransformerConfig, positions, *, causal=True,
-                cache=None) -> tuple:
+                cache=None, probe=None) -> tuple:
         """(x out, new_kv, aux): aux is the MoE load-balancing loss, 0 on
-        the dense path."""
+        the dense path.  ``probe`` (serving traces) gets a mark after the
+        attention ("mla" or "attn") and after the MLP ("moe" or "mlp")."""
         h, new_kv = self.attn(layers.rms_norm(x, self.attn_norm),
                               positions=positions, causal=causal, cache=cache,
                               kv_chunk=cfg.kv_chunk)
         x = x + h
-        if cfg.is_moe:
-            h, aux = self.moe(layers.rms_norm(x, self.mlp_norm))
+        if probe is not None:
+            probe.mark("attn" if isinstance(self.attn, layers.Attention)
+                       else "mla")
+        if self.is_moe:
+            h, aux = self.moe(layers.rms_norm(x, self.mlp_norm), probe=probe)
         else:
             h = self.mlp(layers.rms_norm(x, self.mlp_norm))
             aux = torch.zeros((), device=x.device)
+        if probe is not None:
+            probe.mark("moe" if self.is_moe else "mlp")
         return x + h, new_kv, aux
 
 
@@ -208,8 +308,8 @@ class Transformer(nn.Module):
         emb_scale = 1.0 / math.sqrt(cfg.d_model)
         self.embed = layers.make_param((cfg.padded_vocab, cfg.d_model),
                                        emb_scale, gen, dev, dt)
-        self.layers = nn.ModuleList(Block(cfg, gen, dev)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, gen, dev, i)
+                                    for i in range(cfg.n_layers))
         self.final_norm = layers.make_ones((cfg.d_model,), dev, dt)
         self.unembed = layers.make_param((cfg.d_model, cfg.padded_vocab),
                                          emb_scale, gen, dev, dt)
@@ -258,48 +358,112 @@ class Transformer(nn.Module):
         nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
         return nll.mean() + aux_weight * aux
 
+    @property
+    def cache_keys(self) -> tuple:
+        """The cache's two per-layer tensors: keys and values, or latent
+        attention's normed latent and roped k_pe."""
+        return ("k", "v") if self.cfg.mla_spec is None else ("ckv", "kpe")
+
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """KV cache: k, v (n_layers, B, max_len, kv_heads, d_head), len 0."""
-        spec = self.cfg.attn_spec
-        shape = (self.cfg.n_layers, batch, max_len, spec.padded_kv_heads,
-                 spec.d_head)
-        z = lambda: torch.zeros(shape, dtype=self.cfg.torch_dtype,
-                                device=self.device)
-        return {"k": z(), "v": z(), "len": 0}
+        """KV cache: k, v (n_layers, B, max_len, kv_heads, d_head), len 0;
+        under latent attention ckv (n_layers, B, max_len, kv_lora_rank)
+        and kpe (n_layers, B, max_len, qk_rope_dim)."""
+        cfg, mla = self.cfg, self.cfg.mla_spec
+        head = (cfg.attn_spec.padded_kv_heads, cfg.attn_spec.d_head)
+        widths = ((head, head) if mla is None else
+                  ((mla.kv_lora_rank,), (mla.qk_rope_dim,)))
+        cache = {key: torch.zeros((cfg.n_layers, batch, max_len) + w,
+                                  dtype=cfg.torch_dtype, device=self.device)
+                 for key, w in zip(self.cache_keys, widths)}
+        cache["len"] = 0
+        return cache
 
     @torch.no_grad()
-    def prefill(self, tokens, max_len: int) -> tuple:
+    def prefill(self, tokens, max_len: int, *, last_only: bool = False,
+                cache: Optional[dict] = None) -> tuple:
         """Full-sequence (causal) prefill building the cache; returns
-        (logits (B, S, padded_vocab), cache)."""
+        (logits (B, S, padded_vocab), cache), or with ``last_only`` the
+        last position's logits (B, padded_vocab) alone (the head runs on
+        that position only).  ``cache``: tensors of `init_cache` (B,
+        max_len) to write into in place of new ones."""
         tokens = self._tokens(tokens)
         b, s = tokens.shape
-        cache = self.init_cache(b, max_len)
+        keys = self.cache_keys
+        if cache is None:
+            cache = self.init_cache(b, max_len)
+        else:
+            cache = {key: cache[key] for key in keys}
         x = self.embed[tokens]
         positions = torch.arange(s, device=self.device)[None, :]
         for i, blk in enumerate(self.layers):
-            x, (nk, nv), _ = blk(x, self.cfg, positions)
-            cache["k"][i, :, :s] = nk.to(cache["k"].dtype)
-            cache["v"][i, :, :s] = nv.to(cache["v"].dtype)
+            x, new, _ = blk(x, self.cfg, positions)
+            for key, t in zip(keys, new):
+                cache[key][i, :, :s] = t.to(cache[key].dtype)
+        if last_only:
+            x = x[:, -1]
         x = layers.rms_norm(x, self.final_norm)
         cache["len"] = s
         return torch.matmul(x, self.unembed), cache
 
     @torch.no_grad()
-    def decode_step(self, tokens, cache: dict) -> tuple:
+    def decode_step(self, tokens, cache: dict, *, probe=None) -> tuple:
         """tokens (B, s) + cache -> (logits (B, padded_vocab) of the last
         position, cache).  The port writes the new keys and values into
-        ``cache``'s tensors in place; the returned dict shares them."""
+        ``cache``'s tensors in place; the returned dict shares them.
+        ``cache["len"]`` may be a 0-d device tensor, read on the device
+        (so that the step can be captured in a CUDA graph and replayed).
+        ``probe`` (serving traces): see `Block.forward` and
+        `repro_torch.models.moe.moe_fwd`."""
         tokens = self._tokens(tokens)
         s = tokens.shape[1]
-        n = int(cache["len"])
+        n = cache["len"]
+        if not torch.is_tensor(n):
+            n = int(n)
+        keys = self.cache_keys
         x = self.embed[tokens]
         positions = n + torch.arange(s, device=self.device)[None, :]
         for i, blk in enumerate(self.layers):
-            x, _, _ = blk(x, self.cfg, positions,
-                          cache=(cache["k"][i], cache["v"][i], n))
+            x, _, _ = blk(x, self.cfg, positions, probe=probe,
+                          cache=(cache[keys[0]][i], cache[keys[1]][i], n))
         x = layers.rms_norm(x, self.final_norm)
         logits = torch.matmul(x[:, -1, :], self.unembed)
-        return logits, {"k": cache["k"], "v": cache["v"], "len": n + s}
+        return logits, {keys[0]: cache[keys[0]], keys[1]: cache[keys[1]],
+                        "len": n + s}
+
+
+def param_seed(seed: int, name: str) -> int:
+    """The 63-bit seed of parameter ``name``'s draw: the first 8 bytes of
+    BLAKE2b over ``"<seed>/<name>"``, little-endian, shifted right once."""
+    digest = hashlib.blake2b(f"{seed}/{name}".encode(), digest_size=8)
+    return int.from_bytes(digest.digest(), "little") >> 1
+
+
+def init_by_name(model: "Transformer", seed: int, device: DeviceLike = None
+                 ) -> "Transformer":
+    """Draw every parameter of ``model`` (built on any device, ``meta``
+    too) anew on ``device``, in place, each from its own generator on
+    ``device`` seeded with ``param_seed(seed, name)``: a vector is 1 +
+    0.1 x normal (the norms, so that each weight shows); a matrix or stack
+    of them normal x 1/sqrt(its input width, ``shape[-2]``), the
+    embedding (vocab, d) normal x 1/sqrt(d); drawn in float32, then cast
+    to the config's dtype.  Returns ``model``."""
+    dev = resolve_device(device)
+    dt = model.cfg.torch_dtype
+    for name, param in list(model.named_parameters()):
+        shape = tuple(param.shape)
+        g = torch.Generator(device=dev).manual_seed(param_seed(seed, name))
+        w = torch.randn(shape, generator=g, dtype=torch.float32, device=dev)
+        if len(shape) == 1:
+            w = (1.0 + 0.1 * w).to(dt)
+        else:
+            fan_in = shape[-1] if name == "embed" else shape[-2]
+            w = (w / math.sqrt(fan_in)).to(dt)
+        owner, leaf = model, name
+        if "." in name:
+            path, leaf = name.rsplit(".", 1)
+            owner = model.get_submodule(path)
+        setattr(owner, leaf, nn.Parameter(w, requires_grad=False))
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -603,7 +767,8 @@ def pipeline_loss(model: "Transformer", tokens, targets, *, mesh,
     return mesh_lib.all_reduce_fwd(loss, mesh, data) if data else loss
 
 
-__all__ = ["TransformerConfig", "Block", "Transformer", "abstract_params",
+__all__ = ["TransformerConfig", "DeepseekV2Config", "Block", "Transformer",
+           "param_seed", "init_by_name", "abstract_params",
            "param_specs", "decode_param_specs", "fsdp_param_specs",
            "expert_parallel_specs", "cache_specs", "shard_params",
            "pipeline_stage", "pipeline_forward", "pipeline_loss"]

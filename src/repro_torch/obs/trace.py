@@ -350,6 +350,16 @@ class BoundTracer:
             ev.record()
             self._marks.anchor = (ev, self.clock())
 
+    def device_time(self, ev: "torch.cuda.Event") -> Optional[float]:
+        """The tracer's clock when timing event ``ev`` ran on the device,
+        by the binding's anchor (None before `anchor_device`).  The anchor
+        must be complete."""
+        m = self._marks
+        if m is None or m.anchor is None:
+            return None
+        anchor, t_anchor = m.anchor
+        return t_anchor - ev.elapsed_time(anchor) / 1e3
+
     def record_device_spans(self, stages, **attrs) -> int:
         """``<stage>_device`` spans on the ``device`` track, one for each
         of ``stages``: from the previous mark's device time (the first
@@ -362,10 +372,9 @@ class BoundTracer:
         if m is None or m.anchor is None or \
                 [s for s, _ in m.marks[1:]] != list(stages):
             return 0
-        anchor, t_anchor = m.anchor
-        if not anchor.query():
+        if not m.anchor[0].query():
             return 0
-        ends = [t_anchor - ev.elapsed_time(anchor) / 1e3 for _, ev in m.marks]
+        ends = [self.device_time(ev) for _, ev in m.marks]
         for stage, t0, t1 in zip(stages, ends, ends[1:]):
             self.record(f"{stage}_device", t0, t1, track=DEVICE_TRACK,
                         **attrs)
