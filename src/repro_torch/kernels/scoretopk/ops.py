@@ -32,8 +32,10 @@ def topk_scores(queries: torch.Tensor, corpus: torch.Tensor, k: int, *,
     certificate: the merged result is exact iff no tile contributed all of
     its per-tile candidates.  Default per_tile_k = min(k, tile), always
     exact.  ``tracer`` times the certificate up to its host bool
-    (``topk_certificate``, with the bool as ``ok``); the host waits there
-    for the scan and the merge still queued before it.
+    (``topk_certificate``, with the bool as ``ok``): a count of the merged
+    entries per tile, O(B·k') plus one pass over the (num_tiles, B, kk)
+    candidate ids, and the host's wait for the scan and the merge still
+    queued before it.
     """
     n_rows = corpus.shape[0]
     k = min(k, n_rows)
@@ -48,20 +50,29 @@ def topk_scores(queries: torch.Tensor, corpus: torch.Tensor, k: int, *,
     if kk < k:
         with tracer.span("topk_certificate", lanes=queries.shape[0],
                          kprime=k) as late:
-            exact = _certificate(gidx, mi, kk)
+            exact = _certificate(gidx, mi, kk, tile, n_rows)
             if late is not None:
                 late["ok"] = exact
     return TopK(mv, mi, exact)
 
 
 def _certificate(tile_idx: torch.Tensor, merged_idx: torch.Tensor,
-                 kk: int) -> bool:
-    """True iff every tile contributed < kk entries to the merged top-k."""
-    num_tiles = tile_idx.shape[0]
-    b = merged_idx.shape[0]
-    cand = tile_idx.transpose(0, 1).reshape(b, num_tiles, kk)
-    member = (cand[:, :, :, None] == merged_idx[:, None, None, :]).any(-1)
-    per_tile = member.sum(-1)  # (B, num_tiles)
+                 kk: int, tile: int, n_rows: int) -> bool:
+    """True iff every tile contributed < kk entries to the merged top-k.
+
+    Global ids are t·tile + row, disjoint across tiles, so a tile's share
+    is a histogram of the merged ids by ``id // tile``.  The sentinel id
+    ``n_rows`` (a slot past a tile's finite scores) belongs to no tile;
+    where the merged list holds it, every sentinel slot of every tile
+    counts as a member, as in the reference's membership test.
+    """
+    real = merged_idx != n_rows
+    tile_of = torch.where(real, merged_idx // tile, 0).long()
+    per_tile = torch.zeros(merged_idx.shape[0], tile_idx.shape[0],
+                           dtype=torch.int64, device=merged_idx.device)
+    per_tile.scatter_add_(1, tile_of, real.long())   # (B, num_tiles)
+    sentinels = (tile_idx == n_rows).sum(-1)          # (num_tiles, B)
+    per_tile += (~real).any(-1, keepdim=True) * sentinels.T
     return bool(torch.all(per_tile < kk))
 
 

@@ -540,6 +540,39 @@ def test_score_topk_kernel(cuda, b, n_rows, n, k, tile, special):
     _assert_exact_ties_by_id(got.values.cpu(), got.indices.cpu())
 
 
+@pytest.mark.parametrize("clustered", [False, True])
+def test_certificate_at_tower_shape_stays_small(cuda, clustered):
+    """The two-tower first stage's shape (8 lanes, k' = 6,795 > tile, so kk
+    = tile): the certificate's answer equals the membership broadcast,
+    taken here one lane at a time (~0.9 GB a lane), and the whole call
+    stays within 256 MB above its inputs (the broadcast's transient was
+    ~7.1 GB)."""
+    b, n_rows, n, k, tile = 8, 2**17, 256, 6795, 2048
+    g = torch.Generator(device=cuda).manual_seed(30)
+    q = torch.randn((b, n), generator=g, device=cuda)
+    e = torch.randn((n_rows, n), generator=g, device=cuda)
+    if clustered:                       # lane 3's winners fill tile 5
+        e[5 * tile:6 * tile] = q[3] + 0.01 * e[5 * tile:6 * tile]
+    q /= q.norm(dim=-1, keepdim=True)
+    e /= e.norm(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = sops.topk_scores(q, e, k, tile=tile)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 256 << 20
+    assert got.exact is not clustered
+    vals, gidx = kscore.score_topk_cuda(q, e, kk=tile, tile=tile)
+    _, mi = sref.merge_tiles_ref(vals, gidx, k)
+    assert torch.equal(mi, got.indices)
+    want = True
+    for lane in range(b):
+        member = (gidx[:, lane, :, None] == mi[lane]).any(-1)   # (T, kk)
+        want &= bool(torch.all(member.sum(-1) < tile))
+        del member
+    assert got.exact == want
+
+
 def test_sharded_gather_while_admission_in_flight(cuda):
     """Sharded gathers on the card equal the dense cache's device gather
     before, during (the admitter's copy held on its side stream) and after

@@ -133,6 +133,87 @@ def test_certificate_detects_adversarial_tile():
     np.testing.assert_array_equal(fb.indices.numpy(), np.asarray(want_i))
 
 
+def _certificate_case(case):
+    """(q, e, k, tile, per_tile_k, want) for one certificate case; ``want``
+    is the known answer (None where the data decide it)."""
+    if case == "padded":            # last tile 232 rows, the kk-th place
+        q, e = _data(10, 3, 1000, 32)
+        return q, e, 40, 256, 24, None
+    if case == "kk_eq_tile":        # k' > tile, so kk = tile (the tower's)
+        q, e = _data(11, 2, 20_000, 32)
+        return q, e, 700, 256, None, True
+    if case == "kk_lt_tile":
+        q, e = _data(12, 4, 5000, 64)
+        return q, e, 100, 512, 16, None
+    if case == "clustered":         # every winner in tile 1
+        q, e = _data(13, 1, 2048, 64)
+        e[300:340] = q[0] * 10.0
+        return q, e, 16, 256, 8, False
+    if case == "sentinel":          # rows past tile 0 score -inf: the merged
+        q, e = _data(14, 2, 1500, 16)   # ids hold N from every other tile
+        q = np.abs(q) + 1e-3
+        e[256:] = -np.inf
+        return q, e, 400, 256, 100, False
+    if case == "one_lane_clustered":  # lane 2's winners all in tile 1
+        q, e = _data(15, 4, 4096, 64)
+        e[600:700] = q[2] * 10.0
+        return q, e, 64, 512, 32, False
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["padded", "kk_eq_tile", "kk_lt_tile",
+                                  "clustered", "sentinel",
+                                  "one_lane_clustered"])
+def test_certificate_matches_reference(case):
+    """The per-tile count gives the reference's membership answer."""
+    q, e, k, tile, ptk, want = _certificate_case(case)
+    got = ops.topk_scores(torch.from_numpy(q), torch.from_numpy(e), k,
+                          tile=tile, per_tile_k=ptk)
+    ref_ = jops.topk_scores(jnp.asarray(q), jnp.asarray(e), k=k, tile=tile,
+                            per_tile_k=ptk, use_pallas=True)
+    assert got.exact == bool(ref_.exact)
+    if want is not None:
+        assert got.exact is want
+    if case == "sentinel":
+        assert bool((got.indices == e.shape[0]).any())
+
+
+def _membership_certificate(tile_idx, merged_idx, kk):
+    """The certificate as a membership broadcast, O(B·N·k')."""
+    cand = tile_idx.transpose(0, 1)                      # (B, T, kk)
+    member = (cand[..., None] == merged_idx[:, None, None, :]).any(-1)
+    return bool(torch.all(member.sum(-1) < kk))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_certificate_equals_membership_broadcast(seed):
+    """Random shapes, padded tiles, clustered lanes and -inf rows: the
+    per-tile count equals the membership broadcast on every case."""
+    rng = np.random.default_rng(300 + seed)
+    answers = set()
+    for _ in range(25):
+        b, n_rows = int(rng.integers(1, 5)), int(rng.integers(40, 2500))
+        tile = int(rng.choice([32, 64, 128, 256]))
+        q, e = _data(int(rng.integers(1 << 30)), b, n_rows, 8)
+        t = min(tile, n_rows)
+        k = int(rng.integers(2, min(n_rows, 600) + 1))
+        kk = int(rng.integers(1, min(k - 1, t) + 1))
+        if rng.random() < 0.4:                          # one lane clustered
+            lo = int(rng.integers(0, n_rows))
+            e[lo:lo + kk + 3] = q[int(rng.integers(b))] * 10.0
+        if rng.random() < 0.3:                          # -inf rows
+            q = np.abs(q) + 1e-3
+            e[rng.random(n_rows) < rng.random()] = -np.inf
+        vals, gidx = ref.tile_topk_ref(torch.from_numpy(q),
+                                       torch.from_numpy(e), kk, t)
+        _, mi = ref.merge_tiles_ref(vals, gidx, k)
+        got = ops._certificate(gidx, mi, kk, t, n_rows)
+        assert got == _membership_certificate(gidx, mi, kk), (b, n_rows, t,
+                                                               k, kk)
+        answers.add(got)
+    assert answers == {True, False}
+
+
 def test_distributed_and_slice_topk_match_reference():
     q, e = _data(7, 4, 3000, 96)
     jidx = JFlatIndex.build(e)
