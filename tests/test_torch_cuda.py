@@ -1,12 +1,14 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: on a host without a CUDA device every test here skips.
-Run them on a GPU host with
+The port's card checks are this file and the other ``test_torch_cuda_*.py``
+files; run them on a GPU host with
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda*.py \
+        tests/test_torch_deepseek_v2.py
 
-This file imports torch and numpy only (no JAX), so it runs where the JAX
-package is not installed.
+These files import torch and numpy only (no JAX), so they run where the
+JAX package is not installed.
 """
 
 import os
@@ -34,13 +36,6 @@ from repro_torch.kernels.scoretopk import scoretopk as kscore
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
 def _assert_ids_equal_up_to_ties(got, want, q, e, rtol=1e-5, atol=1e-6):
     """got/want: (..., B, k) ids for queries q (B, n) over rows e.  Kernel
     and plain version sum float32 products in different orders, so two rows
@@ -66,8 +61,12 @@ def _ctxs(n):
             for q in modring.find_ntt_primes(2 * n, 3, lo=1 << 16)]
 
 
+# the grid, then the RLWE ring's rows (N = 4096 holds its three primes):
+# the batch's 8 query rows, the two-tower round's 1,699 ciphertexts and a
+# 4,096-row block
 @pytest.mark.parametrize("n,batch", [(256, 1), (1024, 8), (4096, 5)] + [
-    (n, batch) for n in (256, 1024, 4096, 16384) for batch in (1, 41, 328)])
+    (n, batch) for n in (256, 1024, 4096, 16384) for batch in (1, 41, 328)]
+    + [(4096, 8), (4096, 1699), (4096, 4096)])
 def test_ntt_kernels_bit_identical(cuda, n, batch):
     rng = np.random.default_rng(n + batch)
     for ctx in _ctxs(n):
@@ -94,7 +93,8 @@ KEY_MUL_CASES = [(2, 1, 41, "one"), (2, 3, 41, "tenant"),
                  (256, 0, 41, "tenant"), (256, 5, 1, "tenant"),
                  (4096, 1, 1, "one"), (4096, 1, 41, "one"),
                  (4096, 8, 41, "tenant"), (8192, 1, 5, "one"),
-                 (16384, 1, 1, "one"), (16384, 2, 3, "tenant")]
+                 (16384, 1, 1, "one"), (16384, 2, 3, "tenant"),
+                 (4096, 1, 1699, "one")]         # the two-tower round's
 
 
 @pytest.mark.parametrize("n,bsz,num_ct,keys", KEY_MUL_CASES)
@@ -161,11 +161,14 @@ def test_decrypt_scores_on_card_equal_host_extraction(cuda):
     assert copy.attrs == {"lanes": 8, "bytes": 8 * kprime * 8}
 
 
-# (a's shape, b): b one row expanded, full, expanded over the middle dim
+# (a's shape, b): b one row expanded (over the batch's, a request's, one
+# and the two-tower round's rows), full, expanded over the middle dim
 # (three collapsed dims), a transposed view (two unmergeable dims), and
 # rows of 7 and 2 residues (4- and 8-byte vectors)
 POINTWISE_CASES = [((328, 4096), "row"), ((41, 4096), "full"),
-                   ((1, 4096), "row"), ((8, 41, 4, 4096), "middle"),
+                   ((1, 4096), "row"), ((41, 4096), "row"),
+                   ((1699, 4096), "row"),
+                   ((8, 41, 4, 4096), "middle"),
                    ((6, 5, 8), "transposed"), ((5, 7), "row"),
                    ((3, 2), "full")]
 
@@ -256,18 +259,18 @@ def _query_rows(rng, ctx, cpt, bsz, chunks, n, value=None):
 
 
 # the main path's shapes (8 and 1 lanes, 41 result ciphertexts) at every N
-# the kernel has a network for, with num_cands not a multiple of cpt
-@pytest.mark.parametrize("n", [256, 1024, 4096, 16384])
-@pytest.mark.parametrize("cpt,chunks", [(c, k) for c in (1, 2, 4)
-                                        for k in (1, 2)])
-def test_fused_gathered_kernel_bit_identical(cuda, n, cpt, chunks):
+# the kernel has a network for, with num_cands not a multiple of cpt; then
+# the two-tower round's (k' = 6,795 at width 256: 1,699 ciphertexts)
+@pytest.mark.parametrize("n,cpt,chunks,nc", [
+    (n, c, k, 40 * c + 1) for n in (256, 1024, 4096, 16384)
+    for c in (1, 2, 4) for k in (1, 2)] + [(4096, 4, 1, 6795)])
+def test_fused_gathered_kernel_bit_identical(cuda, n, cpt, chunks, nc):
     """The fused kernel reading the gathered rows in place (strided, one
     prime of P) against its plain version (pad + reshape + the plain fused
     path), on every prime; the staged kernel + the standalone inverse NTT
     equals it."""
     rng = np.random.default_rng(n + 10 * cpt + chunks)
     ctxs = _ctxs(n)
-    nc = 40 * cpt + 1                    # 41 result ciphertexts, ragged
     for bsz in (8, 1):
         g = _gathered(rng, bsz, nc, chunks, ctxs, n).to(cuda)
         for i, ctx in enumerate(ctxs):
@@ -278,7 +281,7 @@ def test_fused_gathered_kernel_bit_identical(cuda, n, cpt, chunks):
             got = ntt_ops.fused_rotate_hadamard_intt_gathered(
                 g, i, nc, tw, modring.shoup_quotients(tw, ctx.q), f0, f1,
                 ctx)
-            assert got[0].shape == (bsz, 41, n)
+            assert got[0].shape == (bsz, -(-nc // cpt), n)
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1], want[1])
             polys = nref.gathered_polys(g, i, nc, cpt)
@@ -504,11 +507,27 @@ def _zero_rows(rng, q, e):
     (3, 2100, 128, 161, 2048, None),       # last tile: 52 rows < kk
     (5, 777, 130, 16, 256, None),          # dim % 4 != 0: 4-byte loads
     (1, 2**17, 256, 383, 2048, None),      # two-tower width: the round's
-    (8, 20_000, 256, 161, 2048, None)])    # corpus, the kernel rows' batch
+    (8, 20_000, 256, 161, 2048, None),     # corpus, the kernel rows' batch
+    # the first stage's shapes at 10^6 x 768, k' = 161: the batch, one
+    # request, the privacy-ignorant baseline's top 5; a 4-replica router's
+    # slice, an IVF cluster of 16 and a 50,000-doc ingested tail; the text
+    # corpus at k' = 1,058; Fig. 4's NN decode (8 radii x 50 queries) and
+    # the attack over 100,000 aux documents (8 radii x 256 queries);
+    # the two-tower first stage at width 256 (k' = 6,795, so kk = tile)
+    (8, 10**6, 768, 161, 2048, None), (1, 10**6, 768, 161, 2048, None),
+    (1, 10**6, 768, 5, 2048, None), (8, 250_000, 768, 161, 2048, None),
+    (1, 62_500, 768, 161, 2048, None), (8, 62_500, 768, 161, 2048, None),
+    (1, 50_000, 768, 161, 2048, None), (8, 50_000, 768, 161, 2048, None),
+    (1, 2**17, 768, 1058, 2048, None), (8, 2**17, 768, 1058, 2048, None),
+    (400, 3000, 768, 1, 2048, None), (2048, 100_000, 768, 1, 2048, None),
+    (1, 2**17, 256, 2048, 2048, None), (1, 10**6, 256, 2048, 2048, None)])
 def test_score_topk_kernel(cuda, b, n_rows, n, k, tile, special):
     rng = np.random.default_rng(n_rows)
     q = rng.normal(size=(b, n)).astype(np.float32)
-    e = rng.normal(size=(n_rows, n)).astype(np.float32)
+    if n_rows * n > 1 << 26:       # float64 draws of 10^6 x 768 take ~25 s
+        e = rng.standard_normal(size=(n_rows, n), dtype=np.float32)
+    else:
+        e = rng.normal(size=(n_rows, n)).astype(np.float32)
     if special == "zeros":
         _zero_rows(rng, q, e)
     q /= np.linalg.norm(q, axis=-1, keepdims=True)      # unit-norm, as the
@@ -520,7 +539,12 @@ def test_score_topk_kernel(cuda, b, n_rows, n, k, tile, special):
     e[n_rows - 1] = e[best]
     q, e = torch.from_numpy(q), torch.from_numpy(e)
     kv, ki = kscore.score_topk_cuda(q.to(cuda), e.to(cuda), kk=kk, tile=t)
-    pv, pi = sref.tile_topk_ref(q, e, kk, t)
+    # the plain version on the CPU, or on the card where the CPU would take
+    # minutes (8 queries over 10^6 x 768 are 6·10^9 products)
+    ref = torch.device("cpu") if b * n_rows * n <= 1 << 30 else cuda
+    pv, pi = sref.tile_topk_ref(q.to(ref), e.to(ref), kk, t)
+    plain_v, plain_i = sref.merge_tiles_ref(pv, pi, min(k, n_rows))
+    pv, pi = pv.cpu(), pi.cpu()
     torch.testing.assert_close(kv.cpu(), pv, rtol=1e-5, atol=1e-6)
     _assert_ids_equal_up_to_ties(ki.cpu(), pi, q, e)
     _assert_exact_ties_by_id(kv.cpu(), ki.cpu())
@@ -531,10 +555,9 @@ def test_score_topk_kernel(cuda, b, n_rows, n, k, tile, special):
             got = np.intersect1d(row, tied)
             np.testing.assert_array_equal(got, tied[:len(got)])
     got = sops.topk_scores(q.to(cuda), e.to(cuda), k, tile=tile)
-    plain = sops.topk_scores(q, e, k, tile=tile)
-    torch.testing.assert_close(got.values.cpu(), plain.values, rtol=1e-5,
+    torch.testing.assert_close(got.values.cpu(), plain_v.cpu(), rtol=1e-5,
                                atol=1e-6)
-    _assert_ids_equal_up_to_ties(got.indices.cpu(), plain.indices, q, e)
+    _assert_ids_equal_up_to_ties(got.indices.cpu(), plain_i.cpu(), q, e)
     if k > 1:
         assert float(got.values[0, 1]) == float(got.values[0, 0])  # the tie
     _assert_exact_ties_by_id(got.values.cpu(), got.indices.cpu())
@@ -771,8 +794,11 @@ def test_ingest_tail_on_card_equals_plain_pack(cuda):
     sh.close()
 
 
-@pytest.mark.parametrize("ivf", [False, True])
-def test_router_two_replicas_equals_engine_on_card(cuda, ivf):
+@pytest.mark.parametrize("ivf,replicas", [(False, 2), (True, 2), (False, 4)])
+def test_router_two_replicas_equals_engine_on_card(cuda, ivf, replicas):
+    """The router's scatter-gather over 2 (and 4) replicas equals one
+    engine per request (ids, documents, wire bytes), with no fallback scan
+    and no replica quarantined."""
     from repro_torch.data import synth as tsynth
     from repro_torch.retrieval.index import FlatIndex
     from repro_torch.serve import (EngineConfig, ReplicaRouter, RouterConfig,
@@ -800,17 +826,19 @@ def test_router_two_replicas_equals_engine_on_card(cuda, ivf):
         for i, x in enumerate(q):
             srv.submit(("alice", "bob")[i % 2], x, key=i)
         out = srv.drain()
+        fleet = (srv.summary()["router"] if isinstance(srv, ReplicaRouter)
+                 else None)
         srv.close()
-        return out
+        return out, fleet
 
     def sessions():
         return SessionManager(rlwe_params=params, deterministic_seeds=True,
                               device=cuda)
 
-    want = run(ServeEngine(index, config=cfg, sessions=sessions()))
-    got = run(ReplicaRouter(index, config=RouterConfig(num_replicas=2,
-                                                       engine=cfg),
-                            sessions=sessions()))
+    want, _ = run(ServeEngine(index, config=cfg, sessions=sessions()))
+    got, fleet = run(ReplicaRouter(index, config=RouterConfig(
+        num_replicas=replicas, engine=cfg), sessions=sessions()))
+    assert fleet["fallback_scans"] == 0 and not fleet["quarantines"], fleet
     assert len(got) == len(q) and all(r.ok for r in got)
     for a, b in zip(want, got):
         assert a.request_id == b.request_id and a.docs == b.docs
@@ -863,36 +891,53 @@ def test_bignum_ops_on_card_equal_cpu(cuda, key_bits, channels):
         assert torch.equal(got.cpu(), want)
 
 
-def test_paillier_scores_on_card_equal_object_path(cuda):
+# (lanes, dim, candidates): a small batch, then the score stage's shapes at
+# the paper's point (8 lanes of 4 tenants' keys, 768 dims, k' = 161)
+@pytest.mark.parametrize("lanes,dim,cands", [(3, 96, 17), (8, 768, 161)])
+def test_paillier_scores_on_card_equal_object_path(cuda, lanes, dim, cands):
     """The vectorized Paillier encrypt, score and decrypt on the card equal
-    the object path's integers under shared seeds."""
+    the object path's integers under shared seeds, repeat bit for bit, and
+    send no 512-bit lane to the object path."""
     from repro_torch.crypto import paillier as pai
     from repro_torch.crypto import paillier_vec as pvec
 
     keys = [pai.keygen(512, rng=np.random.default_rng(60 + i))
-            for i in range(3)]
+            for i in range(min(lanes, 4))]
+    keys = [keys[i % len(keys)] for i in range(lanes)]
     rng = np.random.default_rng(61)
-    q = rng.normal(size=(3, 96))
+    q = rng.normal(size=(lanes, dim))
     q /= np.linalg.norm(q, axis=-1, keepdims=True)
-    cands = rng.normal(size=(3, 17, 96))
+    cands = rng.normal(size=(lanes, cands, dim))
     cands /= np.linalg.norm(cands, axis=-1, keepdims=True)
-    enc = [pvec.encrypt_vector(k.pub, e, rng=np.random.default_rng(70 + i),
-                               device=cuda)
-           for i, (k, e) in enumerate(zip(keys, q))]
+    pvec.reset_counters()
+
+    def encrypt(i):
+        return pvec.encrypt_vector(keys[i].pub, q[i],
+                                   rng=np.random.default_rng(70 + i),
+                                   device=cuda)
+
+    def score():
+        return pvec.encrypted_scores_batch(
+            [k.pub for k in keys], enc, [torch.from_numpy(c).to(cuda)
+                                         for c in cands],
+            rngs=[np.random.default_rng(80 + i) for i in range(lanes)],
+            device=cuda)
+
+    enc = [encrypt(i) for i in range(lanes)]
+    assert encrypt(0) == enc[0]
     for i, (k, e) in enumerate(zip(keys, q)):
         assert enc[i] == pai.encrypt_vector(k.pub, e,
                                             rng=np.random.default_rng(70 + i))
-    got = pvec.encrypted_scores_batch(
-        [k.pub for k in keys], enc, [torch.from_numpy(c).to(cuda)
-                                     for c in cands],
-        rngs=[np.random.default_rng(80 + i) for i in range(3)], device=cuda)
+    got = score()
+    assert score() == got
     want = [pai.encrypted_scores(k.pub, e, c, rng=np.random.default_rng(80 + i))
             for i, (k, e, c) in enumerate(zip(keys, enc, cands))]
     assert got == want
     dec = pvec.decrypt_scores_batch(keys, got, device=cuda)
+    assert pvec.counters["object"] == 0, pvec.counters
     for k, ct, d, c, e in zip(keys, got, dec, cands, q):
         np.testing.assert_array_equal(d, pai.decrypt_scores(k, ct))
-        np.testing.assert_allclose(d, c @ e, atol=2e-3)
+        np.testing.assert_allclose(d, c @ e, rtol=0, atol=2e-3)
 
 
 @pytest.mark.parametrize("n_docs,vocab,n_q", [(3000, 1024, 50),
@@ -945,25 +990,35 @@ def test_embedder_on_card_equals_cpu(cuda):
     assert float((got - want).abs().max()) <= 1e-4
 
 
-def test_moe_lm_on_card_equals_cpu(cuda):
-    """The reduced Qwen3-MoE config (float32, TF32 off) on the card against
-    the same weights on the CPU: prefill of 4 prompts x 24 tokens, then 3
-    decode steps fed the CPU's greedy tokens.  Routing ids equal wherever
-    a token's k-th/(k+1)-th router-logit gap exceeds 1e-4 on both devices;
-    logits within 1e-3 on the sequences with no token below that gap
-    (chip_smoke.py's lm gate)."""
+# (width, prompts, prompt length, decode steps, cache length): the reduced
+# config, then every published width with tp = 1 at 2 of the 48 layers
+@pytest.mark.parametrize("width,prompts,length,steps,max_len",
+                         [("reduced", 4, 24, 3, 32), ("full", 2, 64, 4, 68)])
+def test_moe_lm_on_card_equals_cpu(cuda, width, prompts, length, steps,
+                                   max_len):
+    """Qwen3-MoE (float32, TF32 off) on the card against the same weights
+    on the CPU: prefill of the prompts, then decode steps fed the CPU's
+    greedy tokens.  Every layer's MoE runs once a call on both; routing
+    ids equal wherever a token's k-th/(k+1)-th router-logit gap exceeds
+    1e-4 on both devices; logits within 1e-3 on the sequences with no
+    token below that gap; no kernel of ours launched."""
+    import dataclasses
+
     from repro_torch.configs import registry
     from repro_torch.kernels import ext
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.transformer import Transformer
 
-    cfg = registry.get("qwen3-moe-30b-a3b").reduced
+    entry = registry.get("qwen3-moe-30b-a3b")
+    cfg = entry.reduced if width == "reduced" else dataclasses.replace(
+        entry.config, tp=1, n_layers=2, dtype="float32")
     cpu = Transformer(cfg, generator=torch.Generator().manual_seed(4),
                       device="cpu")
-    card = Transformer(cfg, generator=torch.Generator().manual_seed(5),
-                       device=cuda)
+    card = Transformer(cfg, generator=torch.Generator(device=cuda)
+                       .manual_seed(5), device=cuda)
     card.load_state_dict(cpu.state_dict())
-    tokens = np.random.default_rng(11).integers(0, cfg.vocab, size=(4, 24))
+    tokens = np.random.default_rng(11).integers(0, cfg.vocab,
+                                                size=(prompts, length))
 
     def run(model, feed):
         record = []
@@ -975,9 +1030,9 @@ def test_moe_lm_on_card_equals_cpu(cuda):
                            (values[..., k - 1] - values[..., k]).cpu()))
 
         hooks = [blk.moe.register_forward_hook(hook) for blk in model.layers]
-        logits, cache = model.prefill(tokens, max_len=32)
+        logits, cache = model.prefill(tokens, max_len=max_len)
         outs, fed = [logits.cpu()], []
-        for step in range(3):
+        for step in range(steps):
             nxt = (outs[-1][:, -1, :cfg.vocab].argmax(-1) if feed is None
                    else feed[step])
             fed.append(nxt)
@@ -996,7 +1051,8 @@ def test_moe_lm_on_card_equals_cpu(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert ext.launch_counts() == {}          # no kernel on the LM path
-    excluded = torch.zeros(4, dtype=torch.bool)
+    assert len(rec_cpu) == len(rec_card) == cfg.n_layers * (1 + steps)
+    excluded = torch.zeros(prompts, dtype=torch.bool)
     for (ids_a, gap_a), (ids_b, gap_b) in zip(rec_cpu, rec_card):
         clear = torch.minimum(gap_a, gap_b) > 1e-4
         excluded |= (~clear).any(dim=1)
@@ -1035,7 +1091,8 @@ def test_two_tower_round_on_card_equals_cpu(cuda):
     sides; recall@5 = 1.0 and the same ids and wire bytes on both (the
     perturbations differ: a CUDA generator draws other bits), decrypted
     scores within 2e-3 of the plaintext inner products, and every kernel
-    of the serving path launched on the card's round."""
+    of the serving path launched on the card's round (and no standalone
+    inverse NTT, pointwise product or staged re-rank)."""
     from repro_torch.examples import recsys_retrieval as ex
     from repro_torch.models import recsys
 
@@ -1053,6 +1110,8 @@ def test_two_tower_round_on_card_equals_cpu(cuda):
     counts = ext.launch_counts()
     for kern in ("ntt_fwd", "key_mul", "fused_rerank_intt", "score_topk"):
         assert counts.get(kern, 0) > 0, (kern, counts)
+    for kern in ("ntt_inv", "pointwise_mul", "fused_rerank"):
+        assert counts.get(kern, 0) == 0, (kern, counts)
     assert got["index"].dim == 256
     assert got["recall"] == want["recall"] == 1.0
     assert got["ids"].tolist() == want["ids"].tolist()
@@ -1121,14 +1180,17 @@ def nccl_world(cuda, tmp_path):
         mesh_lib.shutdown()
 
 
-def test_world1_nccl_mesh_search_equals_flat_kernel_scan(cuda, nccl_world):
+@pytest.mark.parametrize("n_rows", [20_000, 10**6])
+def test_world1_nccl_mesh_search_equals_flat_kernel_scan(cuda, nccl_world,
+                                                         n_rows):
     """A mesh-built index on a world-1 ``nccl`` mesh runs the score-top-k
-    kernel on its block and equals the flat scan bit for bit."""
+    kernel on its block and equals the flat scan bit for bit (also at the
+    paper's 10^6 x 768)."""
     from repro_torch.retrieval.index import FlatIndex
     from repro_torch.retrieval.topk import distributed_topk
 
     rng = np.random.default_rng(21)
-    e = rng.normal(size=(20_000, 768)).astype(np.float32)
+    e = rng.standard_normal(size=(n_rows, 768), dtype=np.float32)
     q = torch.from_numpy(rng.normal(size=(8, 768)).astype(np.float32))
     mesh = nccl_world.make_mesh((1,), ("data",), device=cuda,
                                 backend="nccl")
@@ -1140,7 +1202,7 @@ def test_world1_nccl_mesh_search_equals_flat_kernel_scan(cuda, nccl_world):
     assert ext.launch_counts().get("score_topk", 0) == 1
     assert torch.equal(got.values, want.values)
     assert torch.equal(got.indices, want.indices)
-    assert got.exact and sharded.num_rows == 20_000
+    assert got.exact and sharded.num_rows == n_rows
 
 
 def test_world1_nccl_moe_sharded_equals_einsum(cuda, nccl_world):

@@ -1,7 +1,7 @@
 """Import hygiene of the port: with JAX (and msgpack) made unimportable, every
-``repro_torch`` module and every module ``chip_smoke.py`` imports must
-load, no module of the JAX package may be loaded, and no kernel build may
-start (kernels build at their first launch, never at import)."""
+``repro_torch`` module and every module the card tests (``test_torch_cuda*.py``)
+import must load, no module of the JAX package may be loaded, and no kernel
+build may start (kernels build at their first launch, never at import)."""
 
 import ast
 import os
@@ -10,6 +10,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+CARD_TESTS = sorted((ROOT / "tests").glob("test_torch_cuda*.py"))
 
 CHECK = r"""
 import importlib, pkgutil, sys
@@ -31,7 +32,7 @@ for must in ("repro_torch.launch.serve", "repro_torch.serve.engine",
     assert must in names, must
 for name in names:
     importlib.import_module(name)
-for stmt in sys.argv[1:]:                 # chip_smoke.py's import statements
+for stmt in sys.argv[1:]:                 # the card tests' import statements
     exec(stmt, {})
 from repro_torch.kernels import ext
 assert ext.builds_started() == 0, ext.build_info
@@ -42,24 +43,27 @@ print(len(names))
 """
 
 
-def _chip_smoke_imports() -> list:
-    """Every import statement in chip_smoke.py (top level and inside its
-    functions), plus the module itself."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    stmts = {"import chip_smoke"}
-    for node in ast.walk(tree):
-        if isinstance(node, (ast.Import, ast.ImportFrom)) and not (
-                isinstance(node, ast.ImportFrom)
-                and node.module == "__future__"):
-            stmts.add(ast.unparse(node))
+def _card_test_imports() -> list:
+    """Every import statement in the card tests (top level and inside their
+    functions), plus the modules themselves."""
+    stmts = set()
+    for f in CARD_TESTS:
+        stmts.add(f"import {f.stem}")
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, (ast.Import, ast.ImportFrom)) and not (
+                    isinstance(node, ast.ImportFrom)
+                    and node.module == "__future__"):
+                stmts.add(ast.unparse(node))
     return sorted(stmts)
 
 
 def test_port_and_chip_smoke_import_without_jax_or_repro():
-    stmts = _chip_smoke_imports()
+    """The port's modules and the card tests' imports load without JAX."""
+    stmts = _card_test_imports()
+    assert len(CARD_TESTS) >= 4
     assert "from repro_torch.crypto import rlwe" in stmts
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
-                                                       str(ROOT)]))
+                                                       str(ROOT / "tests")]))
     out = subprocess.run([sys.executable, "-c", CHECK, *stmts], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -68,9 +72,8 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
 
 def test_port_sources_never_name_jax_or_repro():
     """Static check beside the runtime one: no `import jax` / `from repro.`
-    in the port or in chip_smoke.py."""
-    files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    in the port or in the card tests."""
+    files = list((ROOT / "src" / "repro_torch").rglob("*.py")) + CARD_TESTS
     for f in files:
         tree = ast.parse(f.read_text())
         for node in ast.walk(tree):
